@@ -1,0 +1,533 @@
+"""The BTARD protocol engine (paper Alg. 1-7), one step at a time.
+
+Counterpart of the main-path half of ``repro.core.engine``: the same
+state machine as functions over an explicit :class:`ProtocolState`, with
+the JAX package's phase functions and PRNG chain, so that the same inputs
+give the same bans, accusations and validators:
+
+    attack -> MPRNG seed -> unit directions z -> per-partition CenteredClip
+    + Alg. 6 tables -> aggregator attack / misreport -> V1-V3 checks and
+    validator audits -> accuse/ban -> next validators
+
+Where the JAX package runs N steps under ``lax.scan``, this is a Python
+loop (:func:`scan_protocol`); ``state.step`` is a Python int, so the
+attack window and the per-step key folds are host decisions.
+
+Not ported here (``EngineConfig`` rejects them): elastic membership
+(``n_events``), hierarchical butterflies (``groups``) and sampled-digest
+audits (``audit_k``) — ROADMAP queue 1, items 10-11.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import aggregators as agg_mod
+from repro_torch.core import attacks as attacks_mod
+from repro_torch.core import butterfly as bf
+from repro_torch.core import prng
+from repro_torch.core import verification as verif_mod
+
+BAN_NONE = 0
+BAN_CHEATER = 1  # accused and the recompute proved it (ACCUSE, Alg. 4)
+BAN_COVERUP = 2  # misreported s for a banned peer's partition
+BAN_FALSE_ACCUSER = 3  # slandered an honest peer (Hammurabi rule, Alg. 3)
+BAN_MPRNG = 4  # aborted / mismatched the MPRNG commit-reveal (App. A.2)
+
+BAN_REASON_NAMES = {
+    BAN_NONE: "",
+    BAN_CHEATER: "accusation verified (ACCUSE)",
+    BAN_COVERUP: "covered up a banned peer (s mismatch)",
+    BAN_FALSE_ACCUSER: "false accusation",
+    BAN_MPRNG: "mprng abort/mismatch",
+}
+
+
+class ProtocolState(NamedTuple):
+    """One run's per-step carry. Every draw is a fold of (key, step,
+    phase), so a step's randomness is a function of the state alone."""
+
+    step: int  # t
+    key: torch.Tensor  # (2,) base key of the per-step chain
+    active: torch.Tensor  # (n,) f32, 1 = active
+    validator: torch.Tensor  # (n,) f32, this step's validators
+    prev_agg: torch.Tensor  # (n_parts, part) f32, last clean aggregate
+    ban_step: torch.Tensor  # (n,) i32, -1 while active
+    ban_reason: torch.Tensor  # (n,) i32, BAN_* code
+    accused_count: torch.Tensor  # (n,) i32, cumulative accusations
+    last_checked: torch.Tensor  # (n,) i32, step last audited
+    col_checked: torch.Tensor  # (n,) i32, step each column was checked
+    delay_buf: torch.Tensor | None  # (D, n, d), delayed_gradient only
+
+
+class StepOutputs(NamedTuple):
+    g_hat: torch.Tensor  # (d,) the robust aggregate
+    seed: torch.Tensor  # () the step's MPRNG output
+    banned_now: torch.Tensor  # (n,) bool
+    ban_reason_now: torch.Tensor  # (n,) i32
+    accuse_mat: torch.Tensor  # (n, n) bool, accuser x target
+    sys_accuse: torch.Tensor  # (n,) bool, checksum / Delta_max
+    cheated: torch.Tensor  # (n,) bool, recompute verdict per peer
+    checksum_violations: torch.Tensor  # () i32
+    check_averaging: torch.Tensor  # () i32
+    n_active: torch.Tensor  # () i32, active count at step start
+    validators: torch.Tensor  # (n,) f32, this step's validator mask
+    clip_iters_used: int  # largest CenteredClip budget any partition ran
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Static protocol configuration (the JAX package's fields)."""
+
+    n: int
+    d: int
+    tau: float = 1.0
+    clip_iters: int = 60
+    m_validators: int = 1
+    delta_max: float | None = None
+    clip_lambda: float | None = None
+    attack: str = "none"
+    start_step: int = 0
+    end_step: int = 10**9
+    lam: float = 1000.0
+    delay: int = 1000
+    aggregator_attack: bool = False
+    aggregator_scale: float = 0.0
+    misreport_s: bool = True
+    false_accuse: bool = False
+    mprng_abort: bool = False
+    warm_start: bool = False
+    adaptive_tol: float | None = None
+    aggregator: object = None
+    audit_k: int | None = None
+    groups: int | None = None
+    n_events: int = 0
+
+    def __post_init__(self):
+        if self.audit_k is not None:
+            raise NotImplementedError(
+                "audit_k (sampled-digest audits) is not ported to "
+                "repro_torch yet (ROADMAP queue 1, item 10)")
+        if self.groups is not None and self.groups > 1:
+            raise NotImplementedError(
+                "groups > 1 (hierarchical butterfly) is not ported to "
+                "repro_torch yet (ROADMAP queue 1, item 10)")
+        if self.n_events:
+            raise NotImplementedError(
+                "n_events > 0 (elastic membership) is not ported to "
+                "repro_torch yet (ROADMAP queue 1, item 11)")
+
+    def agg_spec(self) -> agg_mod.AggregatorSpec:
+        """The resolved spec, the legacy knobs filled in as defaults."""
+        return agg_mod.resolve_spec(self.aggregator).with_defaults(
+            tau=self.tau, n_iters=self.clip_iters, max_iters=self.clip_iters,
+            adaptive_tol=self.adaptive_tol, warm_start=self.warm_start)
+
+    @property
+    def n_parts(self) -> int:
+        return self.n
+
+    @property
+    def part(self) -> int:
+        return bf.pad_to_parts(self.d, self.n) // self.n
+
+    @property
+    def has_gradient_attack(self) -> bool:
+        return self.attack not in ("none", "label_flip")
+
+    @property
+    def has_any_attack(self) -> bool:
+        return (self.attack != "none" or self.aggregator_attack
+                or self.false_accuse or self.mprng_abort)
+
+    @property
+    def delay_depth(self) -> int:
+        return max(1, self.delay) if self.attack == "delayed_gradient" else 1
+
+
+def config_from_attack(n, d, attack, **kw) -> EngineConfig:
+    """An EngineConfig from an AttackConfig plus the protocol kwargs."""
+    return EngineConfig(
+        n=n, d=d, attack=attack.kind, start_step=attack.start_step,
+        end_step=attack.end_step, lam=attack.lam, delay=attack.delay,
+        aggregator_attack=attack.aggregator_attack,
+        aggregator_scale=attack.aggregator_scale,
+        misreport_s=attack.misreport_s, false_accuse=attack.false_accuse,
+        mprng_abort=attack.mprng_abort, **kw)
+
+
+def init_state(cfg: EngineConfig, seed: int = 0, device=None) -> ProtocolState:
+    """The initial state, on the CUDA device unless ``device`` says
+    otherwise. The delayed-gradient ring buffer exists only for that
+    attack (the JAX package carries a dense (1, n, d) one always)."""
+    device = resolve_device(device)
+    n = cfg.n
+    if cfg.attack == "delayed_gradient" and cfg.delay_depth * n * cfg.d > 2**28:
+        raise ValueError(
+            f"delayed_gradient ring buffer would be (delay={cfg.delay}, n={n},"
+            f" d={cfg.d}); set AttackConfig.delay to the delay you want")
+    i32 = dict(dtype=torch.int32, device=device)
+    key = prng.key(seed, device=device)
+    active0 = torch.ones((n,), dtype=torch.float32, device=device)
+    validator = _elect(cfg, prng.fold_in(key, 2**31 - 1), active0)
+    delay_buf = None
+    if cfg.attack == "delayed_gradient":
+        delay_buf = torch.zeros(
+            (cfg.delay_depth, n, cfg.d),
+            dtype=torch.bfloat16 if cfg.delay_depth > 1 else torch.float32,
+            device=device)
+    return ProtocolState(
+        step=0, key=key, active=active0, validator=validator,
+        prev_agg=torch.zeros((cfg.n_parts, cfg.part), dtype=torch.float32,
+                             device=device),
+        ban_step=torch.full((n,), -1, **i32),
+        ban_reason=torch.zeros((n,), **i32),
+        accused_count=torch.zeros((n,), **i32),
+        last_checked=torch.full((n,), -1, **i32),
+        col_checked=torch.full((n,), -1, **i32),
+        delay_buf=delay_buf,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Phase functions
+# ---------------------------------------------------------------------------
+def _attacking(cfg: EngineConfig, t: int) -> bool:
+    return cfg.has_any_attack and cfg.start_step <= t < cfg.end_step
+
+
+def _phase_key(state: ProtocolState, phase: int):
+    return prng.fold_in(prng.fold_in(state.key, state.step), phase)
+
+
+def flip_mask(cfg: EngineConfig, state: ProtocolState, byz_mask):
+    """Peers whose gradients are computed with flipped labels this step."""
+    byz = torch.as_tensor(byz_mask, device=state.active.device) > 0
+    if cfg.attack != "label_flip" or not _attacking(cfg, state.step):
+        return torch.zeros_like(byz)
+    return byz & (state.active > 0)
+
+
+def phase_attack(cfg, state, G, honest_G, byz):
+    """Byzantine rows swap in their attack vectors; the delay ring buffer
+    rotates; honest peers optionally self-clip (Alg. 9)."""
+    t = state.step
+    active_b = state.active > 0
+    delay_buf = state.delay_buf
+    if cfg.has_gradient_attack and _attacking(cfg, t):
+        delayed = None
+        if delay_buf is not None:
+            delayed = delay_buf[t % cfg.delay_depth].to(torch.float32)
+        G = attacks_mod.apply_attack(
+            attacks_mod.attack_index(cfg.attack), G, byz & active_b,
+            key=_phase_key(state, 1), lam=cfg.lam, delayed=delayed,
+            hon_mask=~byz & active_b)
+    if cfg.attack == "delayed_gradient":
+        delay_buf = delay_buf.clone()
+        delay_buf[t % cfg.delay_depth] = torch.where(
+            (byz & active_b)[:, None], honest_G, 0.0).to(delay_buf.dtype)
+    if cfg.clip_lambda is not None:
+        nrm = torch.linalg.vector_norm(G, dim=1)
+        scale = torch.clamp(cfg.clip_lambda / torch.clamp(nrm, min=1e-30),
+                            max=1.0)
+        clip_rows = (~byz)[:, None]
+        G = torch.where(clip_rows, G * scale[:, None], G)
+        honest_G = torch.where(clip_rows, G, honest_G)
+    return G, honest_G, delay_buf
+
+
+def phase_mprng(cfg, state, byz):
+    """The shared seed plus the abort-ban outcome (App. A.2)."""
+    seed = prng.randint(_phase_key(state, 0), (), 0, 2**31 - 1)
+    mprng_ban = torch.zeros_like(byz)
+    if cfg.mprng_abort and _attacking(cfg, state.step):
+        mprng_ban = (seed % 2 == 1) & byz & (state.active > 0)
+    return seed, mprng_ban
+
+
+def phase_aggregation(cfg, state, G, weights, seed):
+    """ButterflyClip aggregation and (unless the aggregator attack needs
+    them recomputed against the corrupted value) the Alg. 6 tables.
+    Returns (agg, z, s_tbl, norm_tbl, iters_used)."""
+    spec = cfg.agg_spec()
+    z = bf.get_random_directions(seed, cfg.n_parts, cfg.part)
+    v0 = None
+    if spec.warm_startable and spec.get("warm_start", False):
+        v0 = (state.prev_agg if state.step > 0
+              else torch.zeros_like(state.prev_agg))
+    if cfg.aggregator_attack and cfg.aggregator_scale > 0:
+        agg, _s, _n, iters = verif_mod.spec_aggregate(
+            spec, G, z=None, weights=weights, v0=v0)
+        return agg, z, None, None, iters
+    agg, s_tbl, norm_tbl, iters = verif_mod.spec_aggregate(
+        spec, G, z=z, weights=weights, v0=v0)
+    return agg, z, s_tbl, norm_tbl, iters
+
+
+def phase_aggregator_attack(cfg, state, agg, G, z, byz, weights):
+    """Byzantine aggregators corrupt their partitions; every peer then
+    reports tables against the value it received."""
+    honest_agg = agg
+    corrupt = torch.zeros((cfg.n_parts,), dtype=torch.bool, device=agg.device)
+    if not (cfg.aggregator_attack and cfg.aggregator_scale > 0):
+        return agg, honest_agg, corrupt, None, None
+    if _attacking(cfg, state.step):
+        corrupt = byz & (state.active > 0)
+        agg = attacks_mod.aggregator_shift_all(
+            agg, corrupt, _phase_key(state, 3), cfg.aggregator_scale)
+    s_tbl, norm_tbl = verif_mod.spec_tables(cfg.agg_spec(), G, agg, z)
+    return agg, honest_agg, corrupt, s_tbl, norm_tbl
+
+
+def phase_misreport(cfg, s_tbl, corrupt, byz, active, weights):
+    """The first active colluder cancels sum_i w_i s_i^j for each
+    corrupted partition j."""
+    if not (cfg.aggregator_attack and cfg.misreport_s):
+        return s_tbl
+    is_liar_cand = byz & (active > 0)
+    liar = int(torch.argmax(is_liar_cand.to(torch.int32)))
+    has_liar = is_liar_cand.any()
+    w_liar = weights[liar]
+    col_sums = (s_tbl * weights[:, None]).sum(0)
+    others = col_sums - w_liar * s_tbl[liar]
+    lie = -others / torch.clamp(w_liar, min=1e-30)
+    new_row = torch.where(corrupt & has_liar & (w_liar > 0), lie, s_tbl[liar])
+    s_tbl = s_tbl.clone()
+    s_tbl[liar] = new_row
+    return s_tbl
+
+
+def _choose_targets(cfg, state, active_b):
+    """Audit-age-weighted CHOOSETARGET: validator v audits target[v], the
+    m highest (age + U(0,1)) candidates. Returns (target, valid_audit,
+    is_validator, target_hot (n, n) bool, audited (n,) bool)."""
+    n = cfg.n
+    cand = active_b & (state.validator <= 0)
+    n_cand = cand.sum()
+    u = prng.uniform(_phase_key(state, 5), (n,))
+    age = (state.step - state.last_checked).to(torch.float32)
+    score = torch.where(cand, age + u, torch.full_like(u, -torch.inf))
+    order = torch.argsort(-score, stable=True)
+    is_validator = (state.validator > 0) & active_b
+    val_ord = torch.clamp(torch.cumsum(is_validator.to(torch.int64), 0) - 1,
+                          0, n - 1)
+    target = order[val_ord]
+    valid_audit = is_validator & (val_ord < n_cand)
+    target_hot = torch.nn.functional.one_hot(target, n).to(torch.bool)
+    audited = (target_hot & valid_audit[:, None]).any(0)
+    return target, valid_audit, is_validator, target_hot, audited
+
+
+def phase_verify(cfg, state, G, honest_G, agg, honest_agg, s_tbl, true_s,
+                 norm_tbl, true_norm, byz, weights):
+    """Verifications 1-3 and the validator spot checks -> accusations."""
+    active_b = state.active > 0
+    mismatch_norm = (norm_tbl - true_norm).abs() > 1e-4 * (1.0 + true_norm)
+    mismatch_s = (s_tbl - true_s).abs() > 1e-4 * (1.0 + true_s.abs())
+
+    # V1 + V2a: honest aggregator j accuses any i misreporting for column j
+    agg_ok = active_b & ~byz
+    accuse = agg_ok[:, None] & (mismatch_norm | mismatch_s).T
+
+    # V2b: the zero checksum per partition (system accusation on the owner)
+    if verif_mod.has_zero_checksum(cfg.agg_spec()):
+        cs_tol = bf.checksum_tolerance(agg, G)
+        sums = (s_tbl * weights[:, None]).sum(0)
+        sys_accuse = sums.abs() > cs_tol
+    else:
+        sys_accuse = torch.zeros_like(active_b)
+    checksum_violations = sys_accuse.sum().to(torch.int32)
+
+    # V3: Delta_max majority vote -> CHECKAVERAGING(j)
+    check_averaging = torch.zeros((), dtype=torch.int32, device=G.device)
+    if cfg.delta_max is not None:
+        votes = ((true_norm > cfg.delta_max) * weights[:, None]).sum(0)
+        v3 = votes > weights.sum() / 2.0
+        check_averaging = v3.sum().to(torch.int32)
+        sys_accuse = sys_accuse | v3
+
+    target, valid_audit, is_validator, target_hot, audited = _choose_targets(
+        cfg, state, active_b)
+    grad_mismatch = torch.any(G != honest_G, dim=1)
+    row_tol = 1e-4 * (1.0 + true_s.abs().amax(dim=1))
+    s_row_mismatch = (s_tbl - true_s).abs().amax(dim=1) > row_tol
+    agg_mismatch = torch.any(agg != honest_agg, dim=1)
+    caught = (grad_mismatch[target] | s_row_mismatch[target]
+              | agg_mismatch[target])
+    val_accuse = is_validator & ~byz & caught & valid_audit
+    if cfg.false_accuse and _attacking(cfg, state.step):
+        val_accuse = val_accuse | (is_validator & byz & valid_audit)
+    accuse = accuse | (target_hot & val_accuse[:, None])
+    last_checked = torch.where(
+        audited, torch.full_like(state.last_checked, state.step),
+        state.last_checked)
+
+    accuse = accuse & active_b[:, None] & active_b[None, :]
+    sys_accuse = sys_accuse & active_b
+    return (accuse, sys_accuse, mismatch_s, checksum_violations,
+            check_averaging, last_checked)
+
+
+def phase_accuse_ban(cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban,
+                     G, honest_G, agg, honest_agg, s_tbl, true_s, norm_tbl,
+                     true_norm):
+    """ACCUSE resolution (Alg. 4): the accused peer's work is recomputed;
+    the target is guilty if the accusation holds (and so is everyone who
+    covered for it), else the accuser is."""
+    active_b = state.active > 0
+    cheated = (
+        torch.any(G != honest_G, dim=1)
+        | torch.any((s_tbl - true_s).abs() > 1e-5 + 1e-3 * true_s.abs(), dim=1)
+        | torch.any((norm_tbl - true_norm).abs()
+                    > 1e-5 + 1e-3 * true_norm.abs(), dim=1)
+        | torch.any(agg != honest_agg, dim=1)
+    )
+    accused = sys_accuse | accuse.any(dim=0)
+    ban_cheater = accused & cheated & active_b
+    ban_coverup = (mismatch_s & ban_cheater[None, :]).any(dim=1) & active_b
+    ban_false = (accuse & ~cheated[None, :]).any(dim=1) & active_b
+    banned_now = ban_cheater | ban_coverup | ban_false | (mprng_ban & active_b)
+
+    def code(c):
+        return torch.full_like(state.ban_reason, c)
+
+    reason = torch.where(
+        ban_cheater, code(BAN_CHEATER),
+        torch.where(ban_coverup, code(BAN_COVERUP),
+                    torch.where(ban_false, code(BAN_FALSE_ACCUSER),
+                                torch.where(mprng_ban, code(BAN_MPRNG),
+                                            code(BAN_NONE)))))
+    reason = torch.where(banned_now, reason, code(BAN_NONE))
+    new_active = state.active * (~banned_now).to(torch.float32)
+    return new_active, banned_now, reason, cheated, accused.to(torch.int32)
+
+
+def _elect(cfg: EngineConfig, key, active):
+    """Next step's validators: m uniform draws without replacement over the
+    active peers, never all of them (Alg. 1 L19)."""
+    u = prng.uniform(key, (cfg.n,))
+    score = torch.where(active > 0, u, torch.full_like(u, -torch.inf))
+    rank = torch.argsort(torch.argsort(-score, stable=True), stable=True)
+    m_eff = torch.clamp(torch.clamp(active.sum() - 1, min=0),
+                        max=cfg.m_validators)
+    return ((rank < m_eff) & (active > 0)).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# One full protocol step
+# ---------------------------------------------------------------------------
+def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
+                  honest_G):
+    """One BTARD-SGD aggregation round (the flat verifiable branch).
+
+    G / honest_G: (n, d) — honest_G is what a validator recomputing from
+    the public seed obtains (the same tensor as G unless labels were
+    flipped). Banned rows are zeroed here. Returns (new_state, outputs).
+    """
+    spec = cfg.agg_spec()
+    if not spec.verifiable:
+        raise NotImplementedError(
+            "non-verifiable aggregators are not ported (ROADMAP queue 1, "
+            "item 4)")
+    device = state.active.device
+    byz = torch.as_tensor(byz_mask, device=device) > 0
+    active = state.active
+    active_b = active > 0
+    validator = state.validator * active
+    weights = active * (1.0 - validator)  # Alg. 1 L19: validators sit out
+
+    same = honest_G is G
+    G = torch.where(active_b[:, None], G.to(torch.float32), 0.0)
+    honest_G = G if same else torch.where(
+        active_b[:, None], honest_G.to(torch.float32), 0.0)
+
+    G, honest_G, delay_buf = phase_attack(cfg, state, G, honest_G, byz)
+    seed, mprng_ban = phase_mprng(cfg, state, byz)
+    col_checked = torch.full_like(state.col_checked, state.step)
+
+    agg, z, s_tbl, norm_tbl, iters_used = phase_aggregation(
+        cfg, state, G, weights, seed)
+    agg, honest_agg, corrupt, s2, n2 = phase_aggregator_attack(
+        cfg, state, agg, G, z, byz, weights)
+    if s_tbl is None:
+        s_tbl, norm_tbl = s2, n2
+    true_s, true_norm = s_tbl, norm_tbl
+    s_tbl = phase_misreport(cfg, s_tbl, corrupt, byz, active, weights)
+
+    (accuse, sys_accuse, mismatch_s, cs_viol, chk_avg,
+     last_checked) = phase_verify(
+        cfg, state, G, honest_G, agg, honest_agg, s_tbl, true_s, norm_tbl,
+        true_norm, byz, weights)
+    (new_active, banned_now, reason, cheated,
+     accused_inc) = phase_accuse_ban(
+        cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban, G, honest_G,
+        agg, honest_agg, s_tbl, true_s, norm_tbl, true_norm)
+
+    next_validator = _elect(cfg, _phase_key(state, 4), new_active)
+    g_hat = bf.merge_parts(agg, cfg.d)
+    # warm-start hygiene: carry the aggregate forward only after a step
+    # whose public misbehaviour signals were clean
+    clean = ~banned_now.any() & (chk_avg == 0)
+    new_state = ProtocolState(
+        step=state.step + 1,
+        key=state.key,
+        active=new_active,
+        validator=next_validator,
+        prev_agg=torch.where(clean, agg.to(torch.float32), 0.0),
+        ban_step=torch.where(banned_now,
+                             torch.full_like(state.ban_step, state.step),
+                             state.ban_step),
+        ban_reason=torch.where(banned_now, reason, state.ban_reason),
+        accused_count=state.accused_count + accused_inc,
+        last_checked=last_checked,
+        col_checked=col_checked,
+        delay_buf=delay_buf,
+    )
+    out = StepOutputs(
+        g_hat=g_hat, seed=seed, banned_now=banned_now, ban_reason_now=reason,
+        accuse_mat=accuse, sys_accuse=sys_accuse, cheated=cheated,
+        checksum_violations=cs_viol, check_averaging=chk_avg,
+        n_active=active.sum().to(torch.int32), validators=validator,
+        clip_iters_used=int(iters_used))
+    return new_state, out
+
+
+# ---------------------------------------------------------------------------
+# Data phase and the multi-step runner
+# ---------------------------------------------------------------------------
+def device_data_grads_fn(n: int, batch_fn: Callable, grad_fn: Callable,
+                         label_flip: bool = False):
+    """grads_fn(params, t, flips) -> (G, honest_G) over all n peers, each
+    row the gradient on that peer's public-seed batch. With ``label_flip``
+    the flipped rows of G carry the flipped-label gradient while honest_G
+    keeps the recompute; otherwise honest_G is G itself."""
+
+    def grads_fn(params, t, flips):
+        rows = [grad_fn(params, batch_fn(i, t, False)) for i in range(n)]
+        G = torch.stack(rows)
+        if not label_flip:
+            return G, G
+        flipped = G.clone()
+        for i in torch.nonzero(flips).flatten().tolist():
+            flipped[i] = grad_fn(params, batch_fn(i, t, True))
+        return flipped, G
+
+    return grads_fn
+
+
+def scan_protocol(cfg: EngineConfig, state: ProtocolState, byz_mask, params,
+                  grads_fn: Callable, n_steps: int, update_fn=None):
+    """Run ``n_steps`` rounds. grads_fn(params, t, flips) -> (G, honest_G);
+    update_fn(params, g_hat, t) -> params. Returns (state, params, outs)."""
+    outs = []
+    for _ in range(n_steps):
+        flips = flip_mask(cfg, state, byz_mask)
+        G, honest_G = grads_fn(params, state.step, flips)
+        state, out = protocol_step(cfg, state, byz_mask, G, honest_G)
+        if update_fn is not None:
+            params = update_fn(params, out.g_hat, state.step - 1)
+        outs.append(out)
+    return state, params, outs

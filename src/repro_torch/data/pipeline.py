@@ -1,0 +1,60 @@
+"""Deterministic public-seed token pipeline.
+
+Counterpart of ``repro.data.pipeline``'s ``peer_key`` and
+``TokenPipeline.device_batch``. BTARD needs PUBLIC data: every peer's
+minibatch for step t is a pure function of a public seed, so a validator
+recomputes anyone's gradient bit for bit. The tokens come from the port's
+threefry generator (``core.prng``) along the JAX package's key chain, so
+the integer tokens equal the JAX pipeline's for the same
+``(global_seed, step, peer)``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import prng
+
+
+def peer_key(global_seed, step, peer, device=None):
+    """xi_i^t as a key: fold_in(fold_in(key(seed), step), peer)."""
+    key = (global_seed if isinstance(global_seed, torch.Tensor)
+           else prng.key(global_seed, device=device))
+    return prng.fold_in(prng.fold_in(key, step), peer)
+
+
+class TokenPipeline:
+    """Synthetic LM stream: x_{t+1} = (a*x_t + c) mod V with prob (1-noise),
+    else uniform. The keys and the tokens live on ``device``."""
+
+    def __init__(self, vocab_size: int, seq_len: int, batch_size: int,
+                 a: int = 5, c: int = 7, noise: float = 0.2,
+                 global_seed: int = 0, device="cpu"):
+        self.V = int(vocab_size)
+        self.S = seq_len
+        self.B = batch_size
+        a, c = int(a) % self.V, int(c) % self.V
+        if a * (self.V - 1) + c >= 2**31:
+            raise ValueError(
+                f"affine token map a*x+c overflows int32 for a={a}, c={c}, "
+                f"vocab={self.V}: max transition {a * (self.V - 1) + c} >= 2^31")
+        self.a, self.c, self.noise = a, c, noise
+        self.global_seed = global_seed
+        self.device = torch.device(device)
+
+    def _gen(self, key, batch):
+        k0, k1, k2 = prng.split(key, 3)
+        x = prng.randint(k0, (batch,), 0, self.V)
+        noise_mask = prng.bernoulli(k1, self.noise, (batch, self.S))
+        rand_tok = prng.randint(k2, (batch, self.S), 0, self.V)
+        toks = [x]
+        for s in range(self.S):
+            x = torch.where(noise_mask[:, s], rand_tok[:, s],
+                            (self.a * x + self.c) % self.V)
+            toks.append(x)
+        return torch.stack(toks, dim=1)  # (B, S+1)
+
+    def device_batch(self, step, peer=0, *, batch_size=None):
+        """The batch of (step, peer): {"tokens": (B, S+1) int32}."""
+        b = batch_size or self.B
+        key = peer_key(self.global_seed, step, peer, device=self.device)
+        return {"tokens": self._gen(key, b).to(torch.int32)}

@@ -1,0 +1,306 @@
+"""Python wrappers of the CUDA CenteredClip kernels (``csrc/centered_clip.cu``).
+
+Each wrapper takes the peer stack as the ``(n, d)`` gradient matrix plus a
+partition count: partition p of peer i is ``grads[i, p*part:(p+1)*part]``
+with ``part = ceil(d / n_parts)``, the butterfly layout (``stacked`` below,
+and the JAX package's ``split_parts``) read in place: the ragged tail reads
+as zero. A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
+version in ``kernels/ref.py``, which is also exported (``*_plain``) so the
+kernels can be held against it on the card. Nothing falls back: a failed
+build or launch raises.
+
+Counterparts of ``repro.kernels.centered_clip`` (Pallas, TPU):
+
+=============================  ==========================================
+wrapper                        replaces
+=============================  ==========================================
+``butterfly_clip_fused``       ``butterfly_clip_fused_pallas``
+``verify_tables_batched``      ``verify_tables_batched_pallas``
+``butterfly_clip_adaptive``    ``adaptive_clip_step_pallas`` under the
+                               ``butterfly_clip_adaptive_pallas`` loop
+``butterfly_clip``             ``butterfly_clip_pallas``
+=============================  ==========================================
+
+``LAUNCHES`` counts kernel launches on the card: one per wrapper call, and
+for the adaptive loop one per iteration it runs (its step kernel).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ref
+
+LAUNCHES = {
+    "butterfly_clip_fused": 0,
+    "verify_tables_batched": 0,
+    "adaptive_clip_step": 0,
+    "butterfly_clip": 0,
+}
+MAX_PEERS = 32
+# CTAs per pass, spread over the partitions. A constant, not the card's SM
+# count, so the reduction order (and hence every bit) is the same anywhere.
+TARGET_CTAS = 1024
+THREADS = 256
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def part_len(d: int, n_parts: int) -> int:
+    return -(-d // n_parts)
+
+
+def stacked(grads, n_parts):
+    """(n, d) -> the (n_parts, n, part) stack, zero-padded: the plain
+    versions' input layout (a view, or a padded copy when d is ragged; the
+    kernels read ``grads`` in place)."""
+    n, d = grads.shape
+    part = part_len(d, n_parts)
+    if n_parts * part != d:
+        grads = F.pad(grads, (0, n_parts * part - d))
+    return grads.reshape(n, n_parts, part).transpose(0, 1)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (any device)
+# ---------------------------------------------------------------------------
+def butterfly_clip_fused_plain(grads, n_parts, taus, z, tau_v=None,
+                               weights=None, v0=None):
+    return ref.centered_clip_fused_ref(stacked(grads, n_parts), taus, z,
+                                       tau_v=tau_v, weights=weights, v0=v0)
+
+
+def verify_tables_batched_plain(grads, n_parts, agg, z, tau):
+    return ref.verify_tables_ref(stacked(grads, n_parts), agg, z, tau)
+
+
+def butterfly_clip_plain(grads, n_parts, taus, weights=None, v0=None):
+    return ref.centered_clip_ref(stacked(grads, n_parts), taus, weights, v0)
+
+
+def butterfly_clip_adaptive_plain(grads, n_parts, tau, tol, max_iters,
+                                  weights=None, v0=None):
+    """The early-exit loop over ``adaptive_step_ref``: converged
+    partitions freeze by select; stops when every partition's last update
+    has ||dv|| <= tol, or after ``max_iters``. Returns (agg, iters (P,))."""
+    xs = stacked(grads, n_parts)
+    v = (torch.zeros((n_parts, xs.shape[-1]), dtype=torch.float32,
+                     device=xs.device)
+         if v0 is None else v0.to(torch.float32))
+    sq = ref.sq_norms(xs, v)
+    tol2 = float(np.float32(tol) ** 2)
+    d2 = torch.full((n_parts,), math.inf, device=xs.device)
+    iters = torch.zeros((n_parts,), dtype=torch.int32, device=xs.device)
+    for _ in range(max_iters):
+        active = d2 > tol2
+        if not bool(active.any()):
+            break
+        v_new, sq_new = ref.adaptive_step_ref(xs, v, sq, tau, weights)
+        upd2 = ((v_new - v) ** 2).sum(-1)
+        v = torch.where(active[:, None], v_new, v)
+        sq = torch.where(active[:, None], sq_new, sq)
+        d2 = torch.where(active, upd2, d2)
+        iters += active.to(torch.int32)
+    return v, iters
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(status: int, what: str):
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
+
+
+class _Stack:
+    """Validated kernel arguments for the (n, d) stack read as n_parts
+    partitions, plus the pass geometry (chunk size cs, C chunks)."""
+
+    def __init__(self, grads, n_parts):
+        from repro_torch.kernels import build
+
+        if grads.dtype != torch.float32 or grads.dim() != 2:
+            raise ValueError(f"grads must be (n, d) float32, got "
+                             f"{tuple(grads.shape)} {grads.dtype}")
+        if grads.stride(1) != 1:
+            raise ValueError("grads must have unit column stride")
+        self.n, self.d = grads.shape
+        if not 1 <= self.n <= MAX_PEERS:
+            raise ValueError(f"the kernels take 1..{MAX_PEERS} peers, "
+                             f"got {self.n}")
+        self.P = int(n_parts)
+        self.part = part_len(self.d, self.P)
+        self.device = grads.device
+        self.grads = grads
+        c = max(1, min(-(-self.part // THREADS), -(-TARGET_CTAS // self.P)))
+        self.cs = -(-self.part // c)
+        self.C = -(-self.part // self.cs)
+        self.lib = build.load()
+        self.stream = torch.cuda.current_stream(self.device).cuda_stream
+        self.args = (grads.data_ptr(), grads.stride(0), self.part, self.d,
+                     self.n, self.P)
+
+    def f32(self, t, shape, name):
+        t = t.to(device=self.device, dtype=torch.float32).contiguous()
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        return t
+
+    def empty(self, *shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def weights(self, weights):
+        if weights is None:
+            return torch.ones((self.n,), dtype=torch.float32,
+                              device=self.device)
+        return self.f32(weights, (self.n,), "weights")
+
+    def start(self, v0):
+        if v0 is None:
+            return torch.zeros((self.P, self.part), dtype=torch.float32,
+                               device=self.device)
+        return self.f32(v0, (self.P, self.part), "v0").clone()
+
+    def sq_pass(self, v, sq_part):
+        _check(self.lib.cc_sq_pass(*self.args, _ptr(v), self.cs, self.C,
+                                   _ptr(sq_part), self.stream), "sq pass")
+
+    def update(self, v, cw, wsum, sq_part=None, d2_part=None, d2=None,
+               tol2=0.0):
+        _check(self.lib.cc_update(*self.args, _ptr(v), _ptr(cw), _ptr(wsum),
+                                  self.cs, self.C, _ptr(sq_part),
+                                  _ptr(d2_part), _ptr(d2), tol2,
+                                  self.stream), "update pass")
+
+    def dot_pass(self, v, z, dot_part, sq_part=None):
+        _check(self.lib.cc_dot_pass(*self.args, _ptr(v), _ptr(z), self.cs,
+                                    self.C, _ptr(dot_part), _ptr(sq_part),
+                                    self.stream), "dot pass")
+
+    def finish_weights(self, sq_part, w, tau, sq, cw, wsum=None,
+                       d2_part=None, d2=None, iters=None, tol2=0.0):
+        _check(self.lib.cc_finish_weights(
+            _ptr(sq_part), self.P, self.C, self.n, _ptr(w), float(tau),
+            _ptr(sq), _ptr(cw), _ptr(wsum), _ptr(d2_part), _ptr(d2),
+            _ptr(iters), tol2, self.stream), "finish weights")
+
+    def finish_tables(self, dot_part, tau, s, norms, sq_part=None,
+                      sq_in=None):
+        _check(self.lib.cc_finish_tables(
+            _ptr(dot_part), _ptr(sq_part), _ptr(sq_in), self.P, self.C,
+            self.n, float(tau), _ptr(s), _ptr(norms), self.stream),
+            "finish tables")
+
+
+def _on_cuda(grads) -> bool:
+    """True for a CUDA tensor (kernel), False for a CPU one (plain)."""
+    if grads.is_cuda:
+        return True
+    if grads.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {grads.device}")
+
+
+def butterfly_clip_fused(grads, n_parts, taus, z, tau_v=None, weights=None,
+                         v0=None):
+    """CenteredClip over every partition for ``len(taus)`` iterations with
+    incremental next-iteration norms, then the Alg. 6 table epilogue
+    s_i = min(1, tau_v/||x_i - v||) <z, x_i - v>, ||x_i - v||, in
+    len(taus) + 2 passes of the stack. z, v0: (n_parts, part).
+    Returns (agg (n_parts, part), s (n_parts, n), norms (n_parts, n))."""
+    taus = [float(t) for t in taus]
+    tau_v = taus[-1] if tau_v is None else float(tau_v)
+    if not _on_cuda(grads):
+        return butterfly_clip_fused_plain(grads, n_parts, taus, z, tau_v,
+                                          weights, v0)
+    k = _Stack(grads, n_parts)
+    w, v = k.weights(weights), k.start(v0)
+    z = k.f32(z, (k.P, k.part), "z")
+    sq_part, dot_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
+    sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
+    k.sq_pass(v, sq_part)  # prologue: ||x_i - v0||^2
+    k.finish_weights(sq_part, w, taus[0] if taus else tau_v, sq, cw, wsum)
+    for it, tau in enumerate(taus):
+        k.update(v, cw, wsum, sq_part=sq_part)
+        k.finish_weights(sq_part, w, taus[min(it + 1, len(taus) - 1)], sq,
+                         cw)
+    s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
+    k.dot_pass(v, z, dot_part)  # epilogue: <x_i - v, z>; sq is carried
+    k.finish_tables(dot_part, tau_v, s, norms, sq_in=sq)
+    LAUNCHES["butterfly_clip_fused"] += 1
+    return v, s, norms
+
+
+def verify_tables_batched(grads, n_parts, agg, z, tau):
+    """The Alg. 6 tables of every partition against a given aggregate, in
+    one pass. agg, z: (n_parts, part). Returns (s, norms), (n_parts, n)."""
+    if not _on_cuda(grads):
+        return verify_tables_batched_plain(grads, n_parts, agg, z, tau)
+    k = _Stack(grads, n_parts)
+    agg = k.f32(agg, (k.P, k.part), "agg")
+    z = k.f32(z, (k.P, k.part), "z")
+    dot_part, sq_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
+    s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
+    k.dot_pass(agg, z, dot_part, sq_part=sq_part)
+    k.finish_tables(dot_part, tau, s, norms, sq_part=sq_part)
+    LAUNCHES["verify_tables_batched"] += 1
+    return s, norms
+
+
+def butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
+                            weights=None, v0=None):
+    """Early-exit CenteredClip: one step kernel per iteration, clip weights
+    from the carried squared norms, converged partitions frozen (their
+    step is skipped, which is the select of the TPU loop). The host reads
+    max ||dv||^2 once per iteration to decide whether to go on.
+    Returns (agg (n_parts, part), iters (n_parts,) int32)."""
+    if not _on_cuda(grads):
+        return butterfly_clip_adaptive_plain(grads, n_parts, tau, tol,
+                                             max_iters, weights, v0)
+    k = _Stack(grads, n_parts)
+    w, v = k.weights(weights), k.start(v0)
+    sq_part, d2_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C)
+    sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
+    tol2 = float(np.float32(tol) ** 2)
+    d2 = torch.full((k.P,), math.inf, device=k.device)
+    iters = torch.zeros((k.P,), dtype=torch.int32, device=k.device)
+    k.sq_pass(v, sq_part)  # prologue: the carried state for v0
+    k.finish_weights(sq_part, w, tau, sq, cw, wsum)
+    for _ in range(max_iters):
+        if not bool((d2 > tol2).any()):
+            break
+        k.update(v, cw, wsum, sq_part=sq_part, d2_part=d2_part, d2=d2,
+                 tol2=tol2)
+        k.finish_weights(sq_part, w, tau, sq, cw, d2_part=d2_part, d2=d2,
+                         iters=iters, tol2=tol2)
+        LAUNCHES["adaptive_clip_step"] += 1
+    return v, iters
+
+
+def butterfly_clip(grads, n_parts, taus, weights=None, v0=None):
+    """Two-phase CenteredClip without tables: per iteration a norm pass
+    (norms recomputed from x) and an update pass. Returns (n_parts, part)."""
+    taus = [float(t) for t in taus]
+    if not _on_cuda(grads):
+        return butterfly_clip_plain(grads, n_parts, taus, weights, v0)
+    k = _Stack(grads, n_parts)
+    w, v = k.weights(weights), k.start(v0)
+    sq_part = k.empty(k.P, k.C, k.n)
+    sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
+    for it, tau in enumerate(taus):
+        k.sq_pass(v, sq_part)
+        k.finish_weights(sq_part, w, tau, sq, cw, wsum if it == 0 else None)
+        k.update(v, cw, wsum)
+    LAUNCHES["butterfly_clip"] += 1
+    return v

@@ -1,0 +1,54 @@
+"""Public wrappers around the CenteredClip kernels, named as
+``repro.kernels.ops``.
+
+The peer stack is the (n, d) gradient matrix read as ``n_parts``
+partitions (``kernels.centered_clip``); s/norms come back transposed to the
+(peer, partition) layout of ``core.butterfly.verification_tables``. The
+device of ``grads`` decides the path: a CUDA tensor runs the kernels, a CPU
+tensor the plain versions. There is no switch beside that.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import centered_clip as _k
+
+
+def butterfly_clip_op(grads, n_parts, tau, weights=None, v0=None, *,
+                      n_iters: int = 20):
+    """Two-phase all-partition CenteredClip -> agg (n_parts, part)."""
+    return _k.butterfly_clip(grads, n_parts, [tau] * n_iters, weights, v0)
+
+
+def butterfly_clip_fused_op(grads, n_parts, tau, z, weights=None, tau_v=None,
+                            v0=None, *, n_iters: int = 20):
+    """Fused aggregation + Alg. 6 tables: -> (agg (n_parts, part),
+    s (n, n_parts), norms (n, n_parts))."""
+    agg, s, norms = _k.butterfly_clip_fused(
+        grads, n_parts, [tau] * n_iters, z, tau_v=tau_v, weights=weights,
+        v0=v0,
+    )
+    return agg, s.T, norms.T
+
+
+def butterfly_clip_adaptive_op(grads, n_parts, tau, tol, weights=None,
+                               v0=None, *, max_iters: int = 60):
+    """Early-exit aggregation -> (agg (n_parts, part), iters (n_parts,))."""
+    return _k.butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
+                                      weights, v0)
+
+
+def butterfly_clip_fused_adaptive_op(grads, n_parts, tau, z, tol,
+                                     weights=None, v0=None, *,
+                                     max_iters: int = 60):
+    """Early-exit aggregation, then ONE table pass against the final
+    aggregate -> (agg, s (n, n_parts), norms (n, n_parts), iters)."""
+    agg, iters = _k.butterfly_clip_adaptive(grads, n_parts, tau, tol,
+                                            max_iters, weights, v0)
+    s, norms = _k.verify_tables_batched(grads, n_parts, agg, z, tau)
+    return agg, s.T, norms.T, iters
+
+
+def verify_tables_all_op(grads, n_parts, agg, z, tau):
+    """All-partition tables against a given aggregate (one pass) ->
+    (s (n, n_parts), norms (n, n_parts))."""
+    s, norms = _k.verify_tables_batched(grads, n_parts, agg, z, tau)
+    return s.T, norms.T

@@ -1,0 +1,103 @@
+"""Plain PyTorch versions of the CUDA kernels: the CPU path of every wrapper
+and the yardstick the kernels are held against on the card.
+
+Counterparts of ``repro.kernels.ref`` (the JAX oracles). Every function
+takes a stack ``xs (..., n, d)``: the leading axes are partitions, so one
+call covers all partitions of the butterfly at once. Each follows its
+kernel's dataflow:
+
+* ``centered_clip_ref`` — the two-phase kernel: norms recomputed from x
+  every iteration, then the update;
+* ``adaptive_step_ref`` — one iteration whose clip weights come from the
+  CARRIED squared norms, emitting the next ones as sum ||diff - upd||^2;
+* ``centered_clip_fused_ref`` — the fused kernel: a norm prologue, then
+  ``adaptive_step_ref`` iterations (the incremental norms, never recomputed
+  from x), then the table epilogue. The JAX oracle carries the same
+  recurrence in its expanded form; this one uses the kernels' direct form,
+  so a fixed budget and an adaptive run at tol = 0 agree bit for bit;
+* ``verify_tables_ref`` — the tau-clipped digest and norm in one pass.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _peer_weights(weights, xs):
+    n = xs.shape[-2]
+    if weights is None:
+        return torch.ones((n,), dtype=torch.float32, device=xs.device)
+    return weights.to(torch.float32)
+
+
+def _clip(norms, tau):
+    """min(1, tau / max(norm, 1e-30)); tau = inf -> 1."""
+    tau = float(tau)
+    if math.isinf(tau):
+        return torch.ones_like(norms)
+    return torch.clamp(tau / torch.clamp(norms, min=1e-30), max=1.0)
+
+
+def centered_clip_ref(xs, taus, weights=None, v0=None):
+    """Two-phase CenteredClip. xs (..., n, d); taus: per-iteration radii;
+    weights (n,); v0 (..., d). Returns v (..., d) f32."""
+    xs = xs.to(torch.float32)
+    w = _peer_weights(weights, xs)
+    wsum = torch.clamp(w.sum(), min=1e-30)
+    v = (torch.zeros(xs.shape[:-2] + xs.shape[-1:], dtype=torch.float32,
+                     device=xs.device)
+         if v0 is None else v0.to(torch.float32))
+    for tau in taus:
+        diff = xs - v.unsqueeze(-2)
+        norms = torch.linalg.vector_norm(diff, dim=-1)
+        cw = _clip(norms, tau) * w
+        v = v + (cw.unsqueeze(-1) * diff).sum(-2) / wsum
+    return v
+
+
+def adaptive_step_ref(xs, v, sq, tau, weights=None):
+    """One iteration of the adaptive loop. xs (..., n, d); v (..., d); sq
+    (..., n) = ||x_i - v||^2 (the carried state). Returns (v_new, sq_new)."""
+    xs = xs.to(torch.float32)
+    v = v.to(torch.float32)
+    w = _peer_weights(weights, xs)
+    wsum = torch.clamp(w.sum(), min=1e-30)
+    norms = torch.sqrt(torch.clamp(sq, min=1e-30))
+    cw = _clip(norms, tau) * w
+    diff = xs - v.unsqueeze(-2)
+    upd = (cw.unsqueeze(-1) * diff).sum(-2) / wsum
+    nd = diff - upd.unsqueeze(-2)
+    return v + upd, (nd * nd).sum(-1)
+
+
+def sq_norms(xs, v):
+    """The norm prologue: ||x_i - v||^2, (..., n)."""
+    diff = xs.to(torch.float32) - v.to(torch.float32).unsqueeze(-2)
+    return (diff * diff).sum(-1)
+
+
+def centered_clip_fused_ref(xs, taus, z, tau_v=None, weights=None, v0=None):
+    """Fused CenteredClip + Alg. 6 tables. xs (..., n, d); z (..., d).
+    Returns (v (..., d), s (..., n), norms (..., n)) f32."""
+    xs = xs.to(torch.float32)
+    taus = [float(t) for t in taus]
+    tau_v = taus[-1] if tau_v is None else float(tau_v)
+    v = (torch.zeros(xs.shape[:-2] + xs.shape[-1:], dtype=torch.float32,
+                     device=xs.device)
+         if v0 is None else v0.to(torch.float32))
+    sq = sq_norms(xs, v)
+    for tau in taus:
+        v, sq = adaptive_step_ref(xs, v, sq, tau, weights)
+    norms = torch.sqrt(torch.clamp(sq, min=0.0))
+    dots = ((xs - v.unsqueeze(-2)) * z.to(torch.float32).unsqueeze(-2)).sum(-1)
+    return v, _clip(norms, tau_v) * dots, norms
+
+
+def verify_tables_ref(xs, v, z, tau):
+    """s_i = min(1, tau/||x_i - v||) <z, x_i - v>, norm_i = ||x_i - v||.
+    xs (..., n, d); v, z (..., d). Returns (s, norms), both (..., n)."""
+    diff = xs.to(torch.float32) - v.to(torch.float32).unsqueeze(-2)
+    norms = torch.linalg.vector_norm(diff, dim=-1)
+    dots = (diff * z.to(torch.float32).unsqueeze(-2)).sum(-1)
+    return _clip(norms, tau) * dots, norms

@@ -1,0 +1,120 @@
+"""Shared building blocks of the ported models: LayerNorm/RMSNorm, the dense
+MLP, embeddings with learned positions, and the output projection.
+
+Counterpart of ``repro.models.layers``, restricted to what ALBERT-large
+runs. Parameters are nested dicts of tensors with the JAX package's names,
+shapes and dtypes (``models.convert`` maps one onto the other). Weights are
+drawn with the port's threefry generator (``core.prng``), so a seed gives
+the JAX package's weights up to the last bit of ``normal``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import prng
+
+
+def cdtype(cfg):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _init(key, shape, scale, dtype):
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = float(np.float32(scale / np.sqrt(fan_in)))
+    return (prng.normal(key, shape) * std).to(dtype)
+
+
+def dense_init(key, d_in, d_out, dtype, scale=1.0):
+    return _init(key, (d_in, d_out), scale, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def norm_init(cfg, device, dim=None):
+    dim = dim or cfg.d_model
+    p = {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p, cfg, x):
+    """f32 LayerNorm (``norm_eps``, 1e-6 for ALBERT — not ``nn.LayerNorm``'s
+    default) or RMSNorm, cast back to the input dtype."""
+    xf = x.to(torch.float32)
+    if cfg.norm == "layernorm" and "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"] + p["bias"]
+    else:
+        var = (xf ** 2).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP
+# ---------------------------------------------------------------------------
+def mlp_init(key, cfg):
+    dt = cdtype(cfg)
+    k1, k2, k3 = prng.split(key, 3)
+    p = {
+        "wi": dense_init(k1, cfg.d_model, cfg.d_ff, dt),
+        "wdown": dense_init(k3, cfg.d_ff, cfg.d_model, dt),
+    }
+    if cfg.glu:
+        p["wg"] = dense_init(k2, cfg.d_model, cfg.d_ff, dt)
+    return p
+
+
+def act_fn(cfg, x):
+    if cfg.act == "gelu":
+        # jax.nn.gelu(approximate=True): the tanh form, not torch's default
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def apply_mlp(p, cfg, x):
+    h = x @ p["wi"]
+    if "wg" in p:
+        h = act_fn(cfg, x @ p["wg"]) * h
+    else:
+        h = act_fn(cfg, h)
+    return h @ p["wdown"]
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+def embed_init(key, cfg):
+    dt = cdtype(cfg)
+    p = {"embed": _init(key, (cfg.vocab_size, cfg.d_model), 1.0, dt)}
+    if cfg.learned_pos:
+        p["pos_embed"] = _init(prng.fold_in(key, 1),
+                               (cfg.max_position, cfg.d_model), 1.0, dt)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(prng.fold_in(key, 2), cfg.d_model,
+                                  cfg.vocab_size, dt)
+    return p
+
+
+def embed_tokens(p, cfg, tokens, pos=None):
+    x = p["embed"][tokens.long()]
+    if cfg.learned_pos and pos is not None:
+        x = x + p["pos_embed"][pos]
+    return x
+
+
+def logits_out(p, cfg, x):
+    if cfg.tie_embeddings:
+        logits = x @ p["embed"].T
+    else:
+        logits = x @ p["lm_head"]
+    logits = logits.to(torch.float32)
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits

@@ -1,0 +1,74 @@
+"""Public model API of the port: ``init_params`` and ``loss_fn``.
+
+Counterpart of ``repro.models.model.Model`` in training mode. A batch is
+``{"tokens": (B, S+1) int}``; the loss is the next-token cross-entropy with
+the JAX package's ceiling-chunked evaluation (never more than
+``LOSS_CHUNK`` positions of float32 logits at once).
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core import prng
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (
+    apply_norm,
+    embed_init,
+    embed_tokens,
+    logits_out,
+    norm_init,
+)
+
+LOSS_CHUNK = 2048
+
+
+class Model:
+    def __init__(self, cfg):
+        cfg.validate()
+        if cfg.rope != "none" or cfg.qkv_bias or cfg.qk_norm or cfg.n_experts:
+            raise NotImplementedError(
+                f"{cfg.name}: only the ALBERT-style dense stack is ported "
+                "(rope none, no qkv bias / qk norm / experts)")
+        self.cfg = cfg
+
+    def init_params(self, key):
+        """Parameters from a ``core.prng`` key; they live on its device."""
+        cfg = self.cfg
+        ks = prng.split(key, 4)
+        p = embed_init(ks[0], cfg)
+        p.update(tfm.stack_init(ks[1], cfg))
+        p["final_norm"] = norm_init(cfg, key.device)
+        return p
+
+    def loss_fn(self, params, batch):
+        """Mean next-token cross-entropy; returns (loss, metrics)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
+        B, S = inputs.shape
+        pos = torch.arange(S, device=tokens.device)
+        x = embed_tokens(params, cfg, inputs,
+                         pos=pos if cfg.learned_pos else None)
+        x = tfm.stack_apply(params, cfg, x)
+        x = apply_norm(params["final_norm"], cfg, x)
+
+        n_chunks = -(-S // LOSS_CHUNK)
+        csz = -(-S // n_chunks)
+        emb = {k: params[k] for k in ("embed", "lm_head") if k in params}
+
+        def chunk_loss(x_sl, tgt_sl, *emb_leaves):
+            logits = logits_out(dict(zip(emb, emb_leaves)), cfg, x_sl)
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1, tgt_sl[..., None])[..., 0]
+            return (lse - tgt).sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for i in range(n_chunks):
+            sl = slice(i * csz, min((i + 1) * csz, S))
+            # recomputed in the backward, as the JAX package's jax.checkpoint
+            total = total + checkpoint(chunk_loss, x[:, sl], targets[:, sl],
+                                       *emb.values(), use_reentrant=False)
+        loss = total / (B * S)
+        return loss, {"loss": loss}
+

@@ -1,0 +1,164 @@
+"""The port's protocol engine (repro_torch.core.engine) against the JAX
+package's (repro.core.engine): the same init_state(seed) and the same
+numpy gradients give EXACTLY the same seed, validators, accusation
+matrices, system accusations, ban sets and ban reasons, and g_hat within
+1e-5 — over the attack grid, with the fixed and the adaptive warm-started
+spec; then a few scanned steps give the same ban steps."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import engine as jeng
+from repro.core.protocol import AttackConfig as JAttack
+from repro_torch.core import engine as teng
+from repro_torch.core.protocol import AttackConfig as TAttack
+
+N, D = 8, 61  # part = 8, ragged
+BYZ = (5, 6, 7)
+SPECS = {
+    "fixed": {},
+    "adaptive_warm": {"aggregator":
+                      "butterfly_clip:warm_start=true,adaptive_tol=1e-4"},
+}
+ATTACKS = {
+    "sign_flip": dict(kind="sign_flip"),
+    "random_direction": dict(kind="random_direction"),
+    "alie": dict(kind="alie"),
+    "ipm_06": dict(kind="ipm_06"),
+    "delayed_gradient": dict(kind="delayed_gradient", delay=2),
+    "aggregator": dict(kind="none", aggregator_attack=True,
+                       aggregator_scale=5.0),
+}
+
+
+def _configs(attack, spec, **kw):
+    common = dict(tau=1.0, clip_iters=20, m_validators=2, **SPECS[spec], **kw)
+    jcfg = jeng.config_from_attack(N, D, JAttack(**ATTACKS[attack]), **common)
+    tcfg = teng.config_from_attack(N, D, TAttack(**ATTACKS[attack]), **common)
+    return jcfg, tcfg
+
+
+def _byz():
+    return np.array([1.0 if i in BYZ else 0.0 for i in range(N)], np.float32)
+
+
+def _grads(seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((N, D)) * 0.3 + 0.1).astype(np.float32)
+
+
+def _assert_outputs_equal(jout, tout):
+    for name in ("banned_now", "ban_reason_now", "accuse_mat", "sys_accuse",
+                 "cheated", "validators", "checksum_violations",
+                 "check_averaging", "n_active"):
+        np.testing.assert_array_equal(
+            getattr(tout, name).numpy(), np.asarray(getattr(jout, name)),
+            err_msg=name)
+    assert int(tout.seed) == int(jout.seed)
+    assert tout.clip_iters_used == int(jout.clip_iters_used)
+    np.testing.assert_allclose(tout.g_hat.numpy(), np.asarray(jout.g_hat),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _assert_states_equal(jst, tst):
+    assert tst.step == int(jst.step)
+    for name in ("active", "validator", "ban_step", "ban_reason",
+                 "accused_count", "last_checked", "col_checked"):
+        np.testing.assert_array_equal(
+            getattr(tst, name).numpy(), np.asarray(getattr(jst, name)),
+            err_msg=name)
+    np.testing.assert_allclose(tst.prev_agg.numpy(), np.asarray(jst.prev_agg),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+@pytest.mark.parametrize("attack", list(ATTACKS))
+def test_one_step_outcomes_equal_jax(attack, spec):
+    jcfg, tcfg = _configs(attack, spec)
+    G = _grads(1)
+    jst = jeng.init_state(jcfg, seed=3)
+    tst = teng.init_state(tcfg, seed=3, device="cpu")
+    _assert_states_equal(jst, tst)
+    jst, jout = jeng.protocol_step(jcfg, jst, jnp.asarray(_byz()),
+                                   jnp.asarray(G), jnp.asarray(G))
+    tG = torch.from_numpy(G)
+    tst, tout = teng.protocol_step(tcfg, tst, torch.from_numpy(_byz()), tG, tG)
+    _assert_outputs_equal(jout, tout)
+    _assert_states_equal(jst, tst)
+
+
+def _linear_problem(steps):
+    """Public-seed linear regression per (step, peer): G depends on params."""
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((steps, N, 4, D)).astype(np.float32)
+    w_true = rng.standard_normal(D).astype(np.float32)
+    y = np.einsum("tnbd,d->tnb", X, w_true).astype(np.float32)
+    return X, y
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+@pytest.mark.parametrize("attack", ["sign_flip", "alie", "aggregator"])
+def test_scanned_steps_ban_steps_equal_jax(attack, spec):
+    steps = 5
+    X, y = _linear_problem(steps)
+    jcfg, tcfg = _configs(attack, spec)
+    jX, jy = jnp.asarray(X), jnp.asarray(y)
+
+    def jgrads(p, t, flips):
+        r = jnp.einsum("nbd,d->nb", jX[t], p) - jy[t]
+        G = 2.0 * jnp.einsum("nbd,nb->nd", jX[t], r) / 4.0
+        return G, G
+
+    tX, ty = torch.from_numpy(X), torch.from_numpy(y)
+
+    def tgrads(p, t, flips):
+        r = torch.einsum("nbd,d->nb", tX[t], p) - ty[t]
+        G = 2.0 * torch.einsum("nbd,nb->nd", tX[t], r) / 4.0
+        return G, G
+
+    jst, jp, jouts = jeng.scan_protocol(
+        jcfg, jeng.init_state(jcfg, seed=0), jnp.asarray(_byz()),
+        jnp.zeros((D,), jnp.float32), jgrads, steps,
+        update_fn=lambda p, g, t: p - 0.05 * g)
+    tst, tp, touts = teng.scan_protocol(
+        tcfg, teng.init_state(tcfg, seed=0, device="cpu"),
+        torch.from_numpy(_byz()), torch.zeros(D), tgrads, steps,
+        update_fn=lambda p, g, t: p - 0.05 * g)
+    _assert_states_equal(jst, tst)
+    for k, tout in enumerate(touts):
+        jout = jax.tree.map(lambda a: a[k], jouts)
+        for name in ("banned_now", "ban_reason_now", "accuse_mat",
+                     "sys_accuse", "validators"):
+            np.testing.assert_array_equal(
+                getattr(tout, name).numpy(), np.asarray(getattr(jout, name)),
+                err_msg=f"step {k} {name}")
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5,
+                               atol=1e-5)
+    assert (tst.ban_step.numpy() >= 0).any() or attack == "aggregator"
+
+
+def test_engine_config_rejects_unported_branches():
+    for kw in (dict(n_events=2), dict(groups=2), dict(audit_k=1)):
+        with pytest.raises(NotImplementedError):
+            teng.EngineConfig(n=4, d=8, **kw)
+    with pytest.raises(NotImplementedError):
+        teng.EngineConfig(n=4, d=8, aggregator="verified:mean").agg_spec()
+
+
+@pytest.mark.parametrize("text", [
+    "butterfly_clip",
+    "butterfly_clip:tau=2.5,n_iters=7",
+    "butterfly_clip:warm_start=true,adaptive_tol=1e-4",
+    "butterfly_clip:adaptive_tol=none",
+])
+def test_spec_grammar_round_trips_like_jax(text):
+    from repro.core.aggregators import AggregatorSpec as JSpec
+    from repro_torch.core.aggregators import AggregatorSpec as TSpec
+
+    t, j = TSpec.parse(text), JSpec.parse(text)
+    assert t.canonical() == j.canonical()
+    assert TSpec.parse(t.canonical()) == t
+    assert t.params == j.params
+    assert t.param_dict() == j.param_dict()
