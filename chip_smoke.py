@@ -7,15 +7,22 @@ Phases, each printing its own line:
      CUDA kernels from ``src/repro_torch/kernels/csrc``, with its time;
   2. every kernel against its plain PyTorch version on the card, at the
      slice's shapes (4 peers x 4 partitions of full-width ALBERT-large) and
-     a ragged small shape, tau in {1, inf}, with zero weights: within
-     rtol = atol = 1e-5 per element and 1e-5 of each output's largest value,
-     bitwise equal over two runs, timed with CUDA events;
+     two ragged small shapes, tau in {1, inf}, with zero weights; the
+     digest kernels and the int8/bf16 wire kernels also with an all-zero
+     payload (scale 0): within rtol = atol = 1e-5 per element and 1e-5 of
+     each output's largest value, bitwise equal over two runs, timed with
+     CUDA events; the wire kernels give the bits of their float32 twins on
+     the dequantized payloads;
   3. the main path: ``repro_torch.launch.train_byzantine`` on full-width
      ALBERT-large (bf16 storage, d = 78,223,360), 4 peers, one sign-flip
      attacker, 2 validators, 5 clip iterations, seq 128, batch 4, 6 steps;
   4. the other branches at full width, 3 steps each: the adaptive
      warm-started spec (kernels #3 and #2) and the aggregator attack
-     (kernels #4 and #2);
+     (kernels #4 and #2); then the verified:* and compressed:* paths,
+     3 steps each with the same peers and attacker: verified:mean (#5),
+     verified:trimmed_mean (#6), verified:mean under the aggregator attack
+     (#6), compressed:butterfly_clip with int8 payloads (#7) and
+     compressed:verified:mean with bf16 payloads (#8);
   5. the launches of every kernel per path.
 
 Before the last line it prints the card's name and power limit and a JSON
@@ -42,14 +49,25 @@ RTOL = ATOL = 1e-5  # the JAX package's kernel tolerance
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 CLIP_ITERS = 5
-SOURCE = "src/repro_torch/kernels/csrc/centered_clip.cu"
+CSRC = "src/repro_torch/kernels/csrc"
 TPU_KERNELS = "src/repro/kernels/centered_clip.py"
-KERNELS = {  # wrapper's launch-count name -> the TPU kernel it replaces
-    "butterfly_clip_fused": f"{TPU_KERNELS}:446",
-    "verify_tables_batched": f"{TPU_KERNELS}:1173",
-    "adaptive_clip_step": f"{TPU_KERNELS}:641",
-    "butterfly_clip": f"{TPU_KERNELS}:211",
+KERNELS = {  # wrapper's launch-count name -> (TPU kernel it replaces, source)
+    "butterfly_clip_fused": (f"{TPU_KERNELS}:446",
+                             f"{CSRC}/centered_clip.cu"),
+    "verify_tables_batched": (f"{TPU_KERNELS}:1173",
+                              f"{CSRC}/centered_clip.cu"),
+    "adaptive_clip_step": (f"{TPU_KERNELS}:641", f"{CSRC}/centered_clip.cu"),
+    "butterfly_clip": (f"{TPU_KERNELS}:211", f"{CSRC}/centered_clip.cu"),
+    "mean_digest_fused": (f"{TPU_KERNELS}:1063",
+                          f"{CSRC}/centered_clip.cu"),
+    "digest_tables_batched": (f"{TPU_KERNELS}:877",
+                              f"{CSRC}/centered_clip.cu"),
+    "butterfly_clip_fused_dequant": (f"{TPU_KERNELS}:512", f"{CSRC}/wire.cu"),
+    "mean_digest_fused_dequant": (f"{TPU_KERNELS}:1120", f"{CSRC}/wire.cu"),
 }
+# the wire codec each dequantizing kernel's path runs (its timed case)
+PATH_CODEC = {"butterfly_clip_fused_dequant": "int8",
+              "mean_digest_fused_dequant": "bf16"}
 
 
 def check(cond, what):
@@ -164,12 +182,110 @@ def kernel_cases(grads, n_parts, tau, weights, gen):
     ]
 
 
+def digest_and_wire_cases(grads, n_parts, tau, weights, gen):
+    """The same tuples for kernels #5-#8 over a stack with an all-zero
+    payload, the wire kernels once per codec: (name, codec, kernel call,
+    plain call, bound bytes, operations, moved bytes, float32 twin call).
+    Bound bytes read each input once (the stack in its wire dtype) and
+    write each output once; moved bytes count the passes as in
+    ``kernel_cases``; the twin is the float32 kernel on the dequantized
+    payloads, which must give the same bits."""
+    from repro_torch.core import compression
+    from repro_torch.kernels import centered_clip as kc
+
+    n, d = grads.shape
+    part = kc.part_len(d, n_parts)
+    dev = grads.device
+    z = torch.randn((n_parts, part), generator=gen, device=dev)
+    z = z / torch.linalg.vector_norm(z, dim=1, keepdim=True)
+    scale = 0.1 / math.sqrt(part)
+    agg = scale * torch.randn((n_parts, part), generator=gen, device=dev)
+    v0 = scale * torch.randn((n_parts, part), generator=gen, device=dev)
+    taus = [tau] * CLIP_ITERS
+    nd, pd, it = n * d, n_parts * part, CLIP_ITERS
+    tbl = 2 * n * n_parts * 4
+    cases = [
+        ("mean_digest_fused", None,
+         lambda: kc.mean_digest_fused(grads, n_parts, z, weights),
+         lambda: kc.mean_digest_fused_plain(grads, n_parts, z, weights),
+         (nd + 2 * pd) * 4 + tbl, nd * 7, (2 * nd + 3 * pd) * 4 + tbl, None),
+        ("digest_tables_batched", None,
+         lambda: kc.digest_tables_batched(grads, n_parts, agg, z),
+         lambda: kc.digest_tables_batched_plain(grads, n_parts, agg, z),
+         (nd + 2 * pd) * 4 + tbl, nd * 5, (nd + 2 * pd) * 4 + tbl, None),
+    ]
+    for codec in ("int8", "bf16"):
+        q, sc = compression.quantize_grads(grads, codec, n_parts)
+        xd = compression.wire_grads(grads, codec, n_parts)
+        b = compression.CODEC_BYTES[codec]
+        wire = nd * b + n_parts * n * 4
+        cases += [
+            ("butterfly_clip_fused_dequant", codec,
+             lambda q=q, sc=sc: kc.butterfly_clip_fused_dequant(
+                 q, sc, n_parts, taus, z, None, weights, v0),
+             lambda q=q, sc=sc: kc.butterfly_clip_fused_dequant_plain(
+                 q, sc, n_parts, taus, z, None, weights, v0),
+             wire + 3 * pd * 4 + tbl, nd * (7 * it + 8),
+             (it + 2) * wire + (2 * it + 5) * pd * 4 + tbl,
+             lambda xd=xd: kc.butterfly_clip_fused(xd, n_parts, taus, z,
+                                                   None, weights, v0)),
+            ("mean_digest_fused_dequant", codec,
+             lambda q=q, sc=sc: kc.mean_digest_fused_dequant(
+                 q, sc, n_parts, z, weights),
+             lambda q=q, sc=sc: kc.mean_digest_fused_dequant_plain(
+                 q, sc, n_parts, z, weights),
+             wire + 2 * pd * 4 + tbl, nd * 9,
+             2 * wire + 3 * pd * 4 + tbl,
+             lambda xd=xd: kc.mean_digest_fused(xd, n_parts, z, weights)),
+        ]
+    return cases
+
+
 def stack(n, d, gen, dev):
     """Peer gradients with partition norms near 1 and one outlier peer."""
     part = -(-d // n)
     g = torch.randn((n, d), generator=gen, device=dev) / math.sqrt(part)
     g[-1] *= 10.0
     return g
+
+
+def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
+         twin=None):
+    """Run one kernel case: bitwise repeatable, within tolerance of its
+    plain version, bitwise equal to its float32 twin where it has one;
+    timed (median of 5 calls) and its bound computed when ``timed``."""
+    out1 = as_tuple(kern())
+    out2 = as_tuple(kern())
+    ref = as_tuple(plain())
+    torch.cuda.synchronize()
+    check(bitwise(out1, out2), f"{tag}: not bitwise repeatable")
+    err, rel = max_err(out1, ref), max_rel_err(out1, ref)
+    check(close(out1, ref), f"{tag}: disagrees with plain, "
+          f"max abs err {err:.3e}, relative {rel:.3e}")
+    if twin is not None:
+        check(bitwise(out1, as_tuple(twin())),
+              f"{tag}: not the bits of the float32 kernel on the "
+              "dequantized payloads")
+    st = stats.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    st["max_rel_err"] = max(st["max_rel_err"], rel)
+    if not timed:
+        return
+    st["ms"] = time_ms(kern)
+    st["plain_ms"] = time_ms(plain, reps=3)
+    st["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= ops / F32_FLOPS_PER_S else "operations")
+    st["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                               ops / F32_FLOPS_PER_S)
+    st["bytes"] = nbytes
+    st["moved_bytes"] = moved(out1) if callable(moved) else moved
+    if name == "adaptive_clip_step":
+        st["iters"] = int(out1[1].max())
+    print(f"phase 2: {tag}: {st['ms']:.3f} ms (plain {st['plain_ms']:.3f}"
+          f" ms, bound {st['bound_ms']:.3f} ms by {st['bound_by']}; moves "
+          f"{st['moved_bytes']} bytes, "
+          f"{st['moved_bytes'] / st['ms'] / 1e9:.3f} TB/s), max abs err "
+          f"{err:.3e}, relative {rel:.3e}", flush=True)
 
 
 def phase_kernels(dev):
@@ -179,57 +295,45 @@ def phase_kernels(dev):
     gen.manual_seed(0)
     d_full = 78_223_360
     shapes = [(4, d_full, 4), (5, 5 * 1001 - 3, 5), (4, 4 * 517 - 3, 4)]
-    stats = {}
+    stats, other = {}, {}  # other[codec]: the codec a path does not run
     for n, d, n_parts in shapes:
         grads = stack(n, d, gen, dev)
+        zero_payload = grads.clone()
+        zero_payload[1, :kc.part_len(d, n_parts)] = 0.0  # int8 scale 0
         for tau in (1.0, math.inf):
             for weights in (None, torch.tensor([1.0] * (n - 2) + [0.0, 1.0],
                                                device=dev)):
                 full = d == d_full and tau == 1.0 and weights is None
+                label = (f"n={n} d={d} tau={tau} "
+                         f"zero_weights={weights is not None}")
                 for name, kern, plain, nbytes, ops, moved in kernel_cases(
                         grads, n_parts, tau, weights, gen):
-                    out1 = as_tuple(kern())
-                    out2 = as_tuple(kern())
-                    ref = as_tuple(plain())
-                    torch.cuda.synchronize()
-                    tag = (f"{name} n={n} d={d} tau={tau} "
-                           f"zero_weights={weights is not None}")
-                    check(bitwise(out1, out2), f"{tag}: not bitwise repeatable")
-                    err, rel = max_err(out1, ref), max_rel_err(out1, ref)
-                    check(close(out1, ref), f"{tag}: disagrees with plain, "
-                          f"max abs err {err:.3e}, relative {rel:.3e}")
-                    st = stats.setdefault(name, {"max_abs_err": 0.0,
-                                                 "max_rel_err": 0.0})
-                    st["max_abs_err"] = max(st["max_abs_err"], err)
-                    st["max_rel_err"] = max(st["max_rel_err"], rel)
-                    if full:
-                        st["ms"] = time_ms(kern)
-                        st["plain_ms"] = time_ms(plain, reps=3)
-                        st["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
-                                          >= ops / F32_FLOPS_PER_S
-                                          else "operations")
-                        st["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                                   ops / F32_FLOPS_PER_S)
-                        st["bytes"] = nbytes
-                        st["moved_bytes"] = (moved(out1) if callable(moved)
-                                             else moved)
-                        if name == "adaptive_clip_step":
-                            st["iters"] = int(out1[1].max())
-                        print(f"phase 2: {name} at n={n} part={-(-d // n)}: "
-                              f"{st['ms']:.3f} ms (plain {st['plain_ms']:.3f}"
-                              f" ms, bound {st['bound_ms']:.3f} ms by "
-                              f"{st['bound_by']}; moves "
-                              f"{st['moved_bytes']} bytes, "
-                              f"{st['moved_bytes'] / st['ms'] / 1e9:.3f} TB/s)"
-                              f", max abs err {err:.3e}, relative {rel:.3e}",
-                              flush=True)
-        del grads
+                    hold(stats, name, f"{name} {label}", kern, plain,
+                         nbytes, ops, moved, full)
+                for (name, codec, kern, plain, nbytes, ops, moved,
+                     twin) in digest_and_wire_cases(zero_payload, n_parts,
+                                                    tau, weights, gen):
+                    own = (stats if codec in (None, PATH_CODEC.get(name))
+                           else other.setdefault(codec, {}))
+                    hold(own, name, f"{name} {codec or 'f32'} {label}", kern,
+                         plain, nbytes, ops, moved, full, twin)
+        del grads, zero_payload
         torch.cuda.empty_cache()
-    print("phase 2: kernels #1-#4 agree with their plain versions within "
+    keep = ("ms", "plain_ms", "bound_ms", "moved_bytes")
+    for name, codec in PATH_CODEC.items():
+        stats[name]["by_codec"] = {codec: {k: stats[name][k] for k in keep}}
+    for codec, side in other.items():
+        for name, st in side.items():
+            main = stats[name]
+            for k in ("max_abs_err", "max_rel_err"):
+                main[k] = max(main[k], st[k])
+            main["by_codec"][codec] = {k: st[k] for k in keep}
+    print("phase 2: kernels #1-#8 agree with their plain versions within "
           f"rtol=atol={RTOL:g} (max relative error "
-          f"{max(st['max_rel_err'] for st in stats.values()):.3e}) and "
-          "repeat bitwise "
-          f"({len(shapes)} shapes x tau {{1, inf}} x weights)", flush=True)
+          f"{max(st['max_rel_err'] for st in stats.values()):.3e}), repeat "
+          "bitwise, and the wire kernels equal their float32 twins on the "
+          f"dequantized payloads bit for bit ({len(shapes)} shapes x tau "
+          "{1, inf} x weights x codecs {int8, bf16})", flush=True)
     kc.reset_launch_counts()
     return stats
 
@@ -269,7 +373,12 @@ def step_breakdown(tr):
             "optimizer": opt_s}
 
 
-def run_path(label, argv, attack=None, expect=(), breakdown=False):
+def run_path(label, argv, attack=None, expect=(), breakdown=False,
+             launches=None):
+    """Drive one path through the launcher with the launch counts set to 0
+    just before and read just after. ``expect``: kernels that must have
+    launched; ``launches``: the exact count of every kernel that may
+    launch, all others 0, and the attacker must be banned."""
     from repro_torch.core.protocol import AttackConfig
     from repro_torch.kernels import centered_clip as kc
     from repro_torch.launch import train_byzantine as tb
@@ -291,6 +400,11 @@ def run_path(label, argv, attack=None, expect=(), breakdown=False):
           f"{label}: banned {summary['banned']} not within {sorted(byz)}")
     for name in expect:
         check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    if launches is not None:
+        want = {name: launches.get(name, 0) for name in counts}
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+        check(set(summary["banned"]) == byz,
+              f"{label}: attacker not banned: {summary}")
     print(f"{label}: median step {statistics.median(seconds):.3f} s over "
           f"{len(seconds)} steps {[round(s, 4) for s in seconds]}; "
           f"launches {counts}", flush=True)
@@ -315,10 +429,13 @@ def main():
     dev = torch.device("cuda")
     card = nvidia_smi_line()
     t0 = time.perf_counter()
-    lib = build.compile_library(verbose=True)
-    build.load()
-    print(f"phase 1: {card}; built {os.path.relpath(lib, ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    libs = build.compile_all()
+    for name in libs:
+        build.load(name)
+    print(f"phase 1: {card}; built "
+          f"{[os.path.relpath(p, ROOT) for p in libs.values()]} in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
+          "parallel)", flush=True)
 
     stats = phase_kernels(dev)
 
@@ -331,28 +448,51 @@ def main():
         expect=("butterfly_clip_fused",), breakdown=True)
     check(set(main_sum["banned"]) == set(main_sum["byzantine"]),
           f"phase 3: attacker not banned in 6 steps: {main_sum}")
-    _, adaptive_counts = run_path(
+    paths = {"main": main_counts}
+    _, paths["adaptive"] = run_path(
         "phase 4 (adaptive warm start)",
         common + ["--steps", "3", "--aggregator",
                   "butterfly_clip:warm_start=true,adaptive_tol=1e-4"],
         expect=("adaptive_clip_step", "verify_tables_batched"))
-    _, attack_counts = run_path(
+    _, paths["aggregator_attack"] = run_path(
         "phase 4 (aggregator attack)", common + ["--steps", "3"],
         attack={"aggregator_attack": True, "aggregator_scale": 5.0},
         expect=("butterfly_clip", "verify_tables_batched"))
+    # the verified:* and compressed:* paths: (label, aggregator, attack,
+    # the kernel that runs once a step)
+    wrapped = [
+        ("verified_mean", "verified:mean", None, "mean_digest_fused"),
+        ("verified_trimmed_mean", "verified:trimmed_mean:trim_ratio=0.25",
+         None, "digest_tables_batched"),
+        ("verified_mean_aggregator_attack", "verified:mean",
+         {"aggregator_attack": True, "aggregator_scale": 5.0},
+         "digest_tables_batched"),
+        ("compressed_butterfly_clip", "compressed:butterfly_clip", None,
+         "butterfly_clip_fused_dequant"),
+        ("compressed_verified_mean_bf16",
+         "compressed:verified:mean:codec=bf16", None,
+         "mean_digest_fused_dequant"),
+    ]
+    for label, aggregator, attack, kernel in wrapped:
+        _, paths[label] = run_path(
+            f"phase 4 ({label}: {aggregator})",
+            common + ["--steps", "3", "--aggregator", aggregator],
+            attack=attack, breakdown=True, launches={kernel: 3})
 
-    paths = {"main": main_counts, "adaptive": adaptive_counts,
-             "aggregator_attack": attack_counts}
     print("phase 5: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
             "adaptive", "adaptive_clip_step": "adaptive",
-            "butterfly_clip": "aggregator_attack"}
+            "butterfly_clip": "aggregator_attack",
+            "mean_digest_fused": "verified_mean",
+            "digest_tables_batched": "verified_trimmed_mean",
+            "butterfly_clip_fused_dequant": "compressed_butterfly_clip",
+            "mean_digest_fused_dequant": "compressed_verified_mean_bf16"}
     rows = []
-    for name, replaces in KERNELS.items():
+    for name, (replaces, source) in KERNELS.items():
         st = stats[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+        row = {
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": home[name],
             "launches": paths[home[name]][name],
             "max_abs_err": st["max_abs_err"],
@@ -360,7 +500,11 @@ def main():
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,
             "moved_bytes": st["moved_bytes"],
-        })
+        }
+        if name in PATH_CODEC:
+            row["codec"] = PATH_CODEC[name]
+            row["by_codec"] = st["by_codec"]
+        rows.append(row)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,31 +1,114 @@
-"""The AggregatorSpec registry: robust aggregation as declarative config.
+"""Robust aggregation: the coordinatewise baselines and the AggregatorSpec
+registry.
 
 Counterpart of ``repro.core.aggregators``. A spec is a registry name plus
 static params (``NAME[:k=v,...]`` on the command line); ``parse`` ->
-``canonical`` -> ``parse`` gives the JAX package's strings. Only the
-flagship ``butterfly_clip`` is registered in this slice: the baselines
-(mean, coordinate_median, trimmed_mean, geometric_median, krum,
-centered_clip) and the ``verified:*`` / ``compressed:*`` wrappers wait for
-their queue items, and parsing them raises ``NotImplementedError``.
+``canonical`` -> ``parse`` gives the JAX package's strings, including the
+``verified:<base>`` (``core.verification``) and ``compressed:<spec>``
+(``core.compression``) wrappers. A registered aggregator builds to the
+uniform callable
 
-Capability flags drive how the engine degrades (see the JAX module): only
-verifiable specs exist here, so the verification phases always run, through
-``core.verification.spec_aggregate``.
+    agg_fn(xs (n, d), weights (n,) | None, v0 (d,) | None, key)
+        -> (agg (d,), AggInfo)
+
+Registered here: the flagship ``butterfly_clip`` and the three
+coordinatewise baselines of the paper's §4.1 (``mean``,
+``coordinate_median``, ``trimmed_mean``), which the wrappers lift into
+verifiable specs. ``geometric_median``, ``krum`` and the trusted-server
+``centered_clip`` are not ported yet (ROADMAP queue 1, item 4): naming them
+raises ``NotImplementedError``.
+
+Capability flags drive how the engine degrades (see the JAX module):
+verifiable specs run the verification phases through
+``core.verification.spec_aggregate``; the non-verifiable baselines run
+without tables, accusations or bans.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
 
 
+class AggInfo(NamedTuple):
+    """Per-call aggregator observables."""
+
+    iters: int  # iterations the aggregator ran
+
+
+# ---------------------------------------------------------------------------
+# Baseline aggregators (paper §4.1)
+# ---------------------------------------------------------------------------
+def mean_agg(xs, weights=None):
+    if weights is None:
+        return xs.mean(0)
+    w = weights / torch.clamp(weights.sum(), min=1e-30)
+    return (w[:, None] * xs).sum(0)
+
+
+def _active_sort(xs, weights):
+    """Sort each coordinate over the rows with weight > 0; banned rows are
+    keyed to +inf, so they land past the m active entries.
+    Returns (sorted (n, d), m)."""
+    active = weights > 0
+    m = int(active.sum())
+    s = torch.sort(torch.where(active[:, None], xs,
+                               torch.full_like(xs, math.inf)), dim=0).values
+    return s, m
+
+
+def coordinate_median(xs, weights=None):
+    """The per-coordinate median over the active rows (all rows when
+    ``weights`` is None). With an even count it is the MEAN of the two
+    middle values, as ``jnp.median`` / ``jnp.nanmedian`` compute it
+    (``torch.median`` would return the lower one)."""
+    if weights is None:
+        s, m = torch.sort(xs, dim=0).values, xs.shape[0]
+    else:
+        s, m = _active_sort(xs, weights)
+    return (s[(m - 1) // 2] + s[m // 2]) * 0.5
+
+
+def trimmed_mean(xs, trim_ratio=0.2, weights=None):
+    """Coordinate-wise trimmed mean over the ACTIVE rows only: banned rows
+    (weight 0) sort past the active block and never enter the trim window;
+    the trim count ``k = floor(m * trim_ratio)`` follows the active count m
+    (in float32, as the JAX package computes it)."""
+    n = xs.shape[0]
+    if weights is None:
+        k = int(n * trim_ratio)
+        s = torch.sort(xs, dim=0).values
+        if k:
+            s = s[k:n - k]
+        return s.mean(0)
+    s, m = _active_sort(xs, weights)
+    k = int(np.floor(np.float32(m) * np.float32(trim_ratio)))
+    idx = torch.arange(n, device=xs.device)[:, None]
+    keep = (idx >= k) & (idx < m - k)
+    cnt = max(m - 2 * k, 1)
+    return torch.where(keep, s, torch.zeros_like(s)).sum(0) / cnt
+
+
+# ---------------------------------------------------------------------------
+# The AggregatorSpec registry
+# ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class AggregatorDef:
-    """One registered aggregator: declared static params + capability
-    flags."""
+    """One registered aggregator: maker + declared static params + flags.
+
+    ``make(n, d, **params) -> agg_fn`` with the uniform signature of the
+    module docstring."""
 
     name: str
+    make: Callable[..., Callable]
     defaults: tuple = ()  # ((name, default), ...)
     verifiable: bool = False
+    weighted: bool = True
     warm_startable: bool = False
+    coordinatewise: bool = False
 
     @property
     def param_names(self):
@@ -34,11 +117,8 @@ class AggregatorDef:
 
 REGISTRY: dict[str, AggregatorDef] = {}
 
-# the registry entries of the JAX package that this slice does not port
-_NOT_PORTED = {
-    "mean", "coordinate_median", "trimmed_mean", "geometric_median",
-    "krum", "centered_clip",
-}
+# registry entries of the JAX package that are not ported yet
+_NOT_PORTED = {"geometric_median", "krum", "centered_clip"}
 
 
 def register(defn: AggregatorDef):
@@ -67,11 +147,6 @@ def _coerce(text: str):
     return text
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
-
-
 @dataclass(frozen=True)
 class AggregatorSpec:
     """Declarative aggregator choice: registry name + static params
@@ -85,9 +160,10 @@ class AggregatorSpec:
         try:
             return REGISTRY[self.name]
         except KeyError:
-            if self.name in _NOT_PORTED:
-                raise _not_ported(f"aggregator {self.name!r}",
-                                  "item 4") from None
+            if self.name.split(":")[-1] in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"aggregator {self.name!r} is not ported to repro_torch "
+                    "yet (ROADMAP queue 1, item 4)") from None
             raise ValueError(
                 f"unknown aggregator {self.name!r}; registered: "
                 f"{', '.join(registered_aggregators())}") from None
@@ -97,8 +173,16 @@ class AggregatorSpec:
         return self.definition.verifiable
 
     @property
+    def weighted(self) -> bool:
+        return self.definition.weighted
+
+    @property
     def warm_startable(self) -> bool:
         return self.definition.warm_startable
+
+    @property
+    def coordinatewise(self) -> bool:
+        return self.definition.coordinatewise
 
     def param_dict(self) -> dict:
         """Declared defaults overlaid with this spec's explicit params."""
@@ -140,12 +224,18 @@ class AggregatorSpec:
 
     @classmethod
     def parse(cls, text: str) -> "AggregatorSpec":
-        """Parse ``NAME[:k=v,...]`` (the ``--aggregator`` syntax)."""
+        """Parse ``NAME[:k=v,...]`` (the ``--aggregator`` syntax);
+        ``verified:BASE[:k=v,...]`` lifts the base spec through
+        :func:`verified`, ``compressed:INNER[:k=v,...]`` through
+        :func:`compressed` (``codec`` binds to the wrapper, every other
+        param to the inner spec)."""
         text = text.strip()
         if text.startswith("verified:"):
-            raise _not_ported("the verified:* wrapper", "item 8")
+            return verified(cls.parse(text[len("verified:"):]))
         if text.startswith("compressed:"):
-            raise _not_ported("the compressed:* wire codecs", "item 9")
+            from repro_torch.core import compression
+
+            return compression.parse_spec_text(text[len("compressed:"):])
         name, _, tail = text.partition(":")
         spec = cls(name.strip())
         spec.definition  # eager name validation
@@ -165,6 +255,10 @@ class AggregatorSpec:
         tail = ",".join(f"{k}={v}" for k, v in self.params)
         return f"{self.name}:{tail}"
 
+    def build(self, n: int, d: int) -> Callable:
+        """Resolve to ``agg_fn(xs, weights, v0, key) -> (agg, AggInfo)``."""
+        return self.definition.make(n, d, **self.param_dict())
+
 
 def resolve_spec(spec) -> AggregatorSpec:
     """An AggregatorSpec, a ``NAME[:k=v,...]`` string, or None (-> the
@@ -179,10 +273,99 @@ def resolve_spec(spec) -> AggregatorSpec:
     raise TypeError(f"not an aggregator spec: {spec!r}")
 
 
+def verified(spec) -> AggregatorSpec:
+    """Lift a coordinatewise spec into its ``verified:`` form
+    (:func:`repro_torch.core.verification.verified`)."""
+    from repro_torch.core import verification
+
+    return verification.verified(spec)
+
+
+def compressed(spec, codec: str | None = None) -> AggregatorSpec:
+    """Wire-compress a verifiable spec's butterfly payloads
+    (:func:`repro_torch.core.compression.compressed`)."""
+    from repro_torch.core import compression
+
+    return compression.compressed(spec, codec=codec)
+
+
+# ---------------------------------------------------------------------------
+# Registered makers
+# ---------------------------------------------------------------------------
+def _make_mean(n, d):
+    def fn(xs, weights=None, v0=None, key=None):
+        return mean_agg(xs, weights), AggInfo(1)
+
+    return fn
+
+
+def _make_coordinate_median(n, d):
+    def fn(xs, weights=None, v0=None, key=None):
+        return coordinate_median(xs, weights), AggInfo(1)
+
+    return fn
+
+
+def _make_trimmed_mean(n, d, trim_ratio=0.2):
+    def fn(xs, weights=None, v0=None, key=None):
+        return trimmed_mean(xs, trim_ratio, weights), AggInfo(1)
+
+    return fn
+
+
+def _make_butterfly(n, d, tau=1.0, n_iters=60, adaptive_tol=None,
+                    warm_start=False):
+    """The flagship as a FLAT aggregator (no tables): per-partition
+    CenteredClip, merged. The verifiable path with the tables is
+    :func:`verified_aggregate` — same spec, same params."""
+    from repro_torch.core import butterfly as bf
+
+    def fn(xs, weights=None, v0=None, key=None):
+        v0p = None
+        if warm_start and v0 is not None:
+            v0p = bf.split_parts(v0[None, :], n)[0]
+        agg, _s, _n, iters = bf.clip_aggregate(
+            xs, tau, n_iters, adaptive_tol=adaptive_tol, weights=weights,
+            v0=v0p)
+        return bf.merge_parts(agg, d), AggInfo(iters)
+
+    return fn
+
+
+register(AggregatorDef("mean", _make_mean, coordinatewise=True))
+register(AggregatorDef("coordinate_median", _make_coordinate_median,
+                       coordinatewise=True))
+register(AggregatorDef("trimmed_mean", _make_trimmed_mean,
+                       defaults=(("trim_ratio", 0.2),),
+                       coordinatewise=True))
 register(AggregatorDef(
-    "butterfly_clip",
+    "butterfly_clip", _make_butterfly,
     defaults=(("tau", 1.0), ("n_iters", 60), ("adaptive_tol", None),
               ("warm_start", False)),
     verifiable=True,
     warm_startable=True,
 ))
+
+# the verified:<base> and compressed:<spec> wrappers register themselves on
+# import (core.verification, which imports core.compression last)
+import repro_torch.core.verification  # noqa: E402,F401
+
+
+# ---------------------------------------------------------------------------
+# Spec-level entry points
+# ---------------------------------------------------------------------------
+def aggregate(spec, xs, weights=None, v0=None, key=None):
+    """Run any registered aggregator by spec: (n, d) -> ((d,), AggInfo)."""
+    spec = resolve_spec(spec)
+    n, d = xs.shape
+    return spec.build(n, d)(xs, weights, v0, key)
+
+
+def verified_aggregate(spec, grads, z, weights=None, v0=None):
+    """The verifiable aggregation contract: aggregation plus the Alg. 6
+    tables in the butterfly layout -> (agg (n_parts, part), s (n, n_parts),
+    norms (n, n_parts), iters). Raises for non-verifiable specs."""
+    from repro_torch.core import verification
+
+    return verification.spec_aggregate(resolve_spec(spec), grads, z=z,
+                                       weights=weights, v0=v0)

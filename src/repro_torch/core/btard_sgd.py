@@ -28,7 +28,7 @@ class TrainerConfig:
     n_peers: int = 16
     byzantine: tuple = ()
     attack: AttackConfig = field(default_factory=AttackConfig)
-    defense: str = "btard"  # only the BTARD flagship is ported
+    defense: str = "btard"  # btard | a registered AggregatorSpec name
     tau: float = 1.0
     clip_iters: int = 60
     m_validators: int = 1
@@ -37,7 +37,10 @@ class TrainerConfig:
     seed: int = 0
     warm_start: bool = False
     adaptive_tol: float | None = None
-    aggregator: object = None  # AggregatorSpec | "name[:k=v,...]" | None
+    # explicit AggregatorSpec (or "name[:k=v,...]"); None resolves from
+    # `defense`: "btard" -> the flagship ButterflyClip, any other name ->
+    # that spec (non-verifiable baselines run without accusations or bans)
+    aggregator: object = None
     device: object = None  # None = cuda
 
 
@@ -47,10 +50,6 @@ class BTARDTrainer:
 
     def __init__(self, loss_fn, params0, batch_fn, cfg: TrainerConfig,
                  optimizer=None):
-        if cfg.defense != "btard":
-            raise NotImplementedError(
-                f"defense {cfg.defense!r}: only btard is ported to "
-                "repro_torch (baselines are ROADMAP queue 1, item 4)")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.batch_fn = batch_fn
@@ -60,13 +59,16 @@ class BTARDTrainer:
         self.d = self.boundary.d
         self.opt = optimizer or sgd(0.05, momentum=0.9, nesterov=True)
         self._opt_state = self.opt.init(self.params)
-        resolve_spec(cfg.aggregator)  # validate early
+        agg = cfg.aggregator
+        if agg is None and cfg.defense != "btard":
+            agg = cfg.defense
+        agg = resolve_spec(agg)  # validate early
         self.engine_config = eng.config_from_attack(
             cfg.n_peers, self.d, cfg.attack, tau=cfg.tau,
             clip_iters=cfg.clip_iters, m_validators=cfg.m_validators,
             delta_max=cfg.delta_max, clip_lambda=cfg.clip_lambda,
             warm_start=cfg.warm_start, adaptive_tol=cfg.adaptive_tol,
-            aggregator=cfg.aggregator)
+            aggregator=agg)
         self.byz_mask = torch.tensor(
             [1.0 if i in set(cfg.byzantine) else 0.0
              for i in range(cfg.n_peers)], device=self.device)

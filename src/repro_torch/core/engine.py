@@ -13,6 +13,12 @@ Where the JAX package runs N steps under ``lax.scan``, this is a Python
 loop (:func:`scan_protocol`); ``state.step`` is a Python int, so the
 attack window and the per-step key folds are host decisions.
 
+The flat verifiable branch runs any verifiable spec (``butterfly_clip``,
+``verified:*``, ``compressed:*``); for a ``compressed:*`` spec the
+commitment compares, the table recompute and the checksum tolerance run
+over the wire projection of the gradients. Non-verifiable specs (the
+coordinatewise baselines) aggregate with no tables, accusations or bans.
+
 Not ported here (``EngineConfig`` rejects them): elastic membership
 (``n_events``), hierarchical butterflies (``groups``) and sampled-digest
 audits (``audit_k``) — ROADMAP queue 1, items 10-11.
@@ -28,6 +34,7 @@ from repro_torch import resolve_device
 from repro_torch.core import aggregators as agg_mod
 from repro_torch.core import attacks as attacks_mod
 from repro_torch.core import butterfly as bf
+from repro_torch.core import compression as comp_mod
 from repro_torch.core import prng
 from repro_torch.core import verification as verif_mod
 
@@ -249,10 +256,19 @@ def phase_mprng(cfg, state, byz):
 
 
 def phase_aggregation(cfg, state, G, weights, seed):
-    """ButterflyClip aggregation and (unless the aggregator attack needs
-    them recomputed against the corrupted value) the Alg. 6 tables.
-    Returns (agg, z, s_tbl, norm_tbl, iters_used)."""
+    """Spec-dispatched robust aggregation. Verifiable specs run
+    ``verification.spec_aggregate`` with the tables (unless the aggregator
+    attack needs them recomputed against the corrupted value); the
+    non-verifiable baselines run their flat fn, with no tables (z, s_tbl,
+    norm_tbl come back None). Returns (agg, z, s_tbl, norm_tbl,
+    iters_used)."""
     spec = cfg.agg_spec()
+    if not spec.verifiable:
+        flat, info = spec.build(cfg.n, cfg.d)(
+            G, weights if spec.weighted else None, None, None)
+        agg = bf.split_parts(flat.to(torch.float32)[None, :],
+                             cfg.n_parts)[0]
+        return agg, None, None, None, info.iters
     z = bf.get_random_directions(seed, cfg.n_parts, cfg.part)
     v0 = None
     if spec.warm_startable and spec.get("warm_start", False):
@@ -269,7 +285,8 @@ def phase_aggregation(cfg, state, G, weights, seed):
 
 def phase_aggregator_attack(cfg, state, agg, G, z, byz, weights):
     """Byzantine aggregators corrupt their partitions; every peer then
-    reports tables against the value it received."""
+    reports tables against the value it received (over the wire values
+    ``G`` for a compressed spec)."""
     honest_agg = agg
     corrupt = torch.zeros((cfg.n_parts,), dtype=torch.bool, device=agg.device)
     if not (cfg.aggregator_attack and cfg.aggregator_scale > 0):
@@ -421,23 +438,22 @@ def _elect(cfg: EngineConfig, key, active):
 # ---------------------------------------------------------------------------
 def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
                   honest_G):
-    """One BTARD-SGD aggregation round (the flat verifiable branch).
+    """One BTARD-SGD aggregation round (the flat branch).
 
     G / honest_G: (n, d) — honest_G is what a validator recomputing from
     the public seed obtains (the same tensor as G unless labels were
     flipped). Banned rows are zeroed here. Returns (new_state, outputs).
     """
     spec = cfg.agg_spec()
-    if not spec.verifiable:
-        raise NotImplementedError(
-            "non-verifiable aggregators are not ported (ROADMAP queue 1, "
-            "item 4)")
     device = state.active.device
     byz = torch.as_tensor(byz_mask, device=device) > 0
     active = state.active
     active_b = active > 0
     validator = state.validator * active
-    weights = active * (1.0 - validator)  # Alg. 1 L19: validators sit out
+    if spec.verifiable:
+        weights = active * (1.0 - validator)  # Alg. 1 L19: validators sit out
+    else:
+        weights = active  # nothing to audit: every active peer contributes
 
     same = honest_G is G
     G = torch.where(active_b[:, None], G.to(torch.float32), 0.0)
@@ -450,21 +466,46 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
 
     agg, z, s_tbl, norm_tbl, iters_used = phase_aggregation(
         cfg, state, G, weights, seed)
-    agg, honest_agg, corrupt, s2, n2 = phase_aggregator_attack(
-        cfg, state, agg, G, z, byz, weights)
-    if s_tbl is None:
-        s_tbl, norm_tbl = s2, n2
-    true_s, true_norm = s_tbl, norm_tbl
-    s_tbl = phase_misreport(cfg, s_tbl, corrupt, byz, active, weights)
+    if spec.verifiable:
+        # compressed:* specs: peers commit to (and validators recompute)
+        # the WIRE payloads, so every compare below runs over the wire
+        # projection of both sides
+        G_cmp, honest_G_cmp = G, honest_G
+        if comp_mod.is_wrapped(spec):
+            codec = comp_mod.codec_of(spec)
+            G_cmp = comp_mod.wire_grads(G, codec, cfg.n_parts)
+            honest_G_cmp = (G_cmp if honest_G is G else
+                            comp_mod.wire_grads(honest_G, codec, cfg.n_parts))
+        agg, honest_agg, corrupt, s2, n2 = phase_aggregator_attack(
+            cfg, state, agg, G_cmp, z, byz, weights)
+        if s_tbl is None:
+            s_tbl, norm_tbl = s2, n2
+        true_s, true_norm = s_tbl, norm_tbl
+        s_tbl = phase_misreport(cfg, s_tbl, corrupt, byz, active, weights)
 
-    (accuse, sys_accuse, mismatch_s, cs_viol, chk_avg,
-     last_checked) = phase_verify(
-        cfg, state, G, honest_G, agg, honest_agg, s_tbl, true_s, norm_tbl,
-        true_norm, byz, weights)
-    (new_active, banned_now, reason, cheated,
-     accused_inc) = phase_accuse_ban(
-        cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban, G, honest_G,
-        agg, honest_agg, s_tbl, true_s, norm_tbl, true_norm)
+        (accuse, sys_accuse, mismatch_s, cs_viol, chk_avg,
+         last_checked) = phase_verify(
+            cfg, state, G_cmp, honest_G_cmp, agg, honest_agg, s_tbl, true_s,
+            norm_tbl, true_norm, byz, weights)
+        (new_active, banned_now, reason, cheated,
+         accused_inc) = phase_accuse_ban(
+            cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban, G_cmp,
+            honest_G_cmp, agg, honest_agg, s_tbl, true_s, norm_tbl,
+            true_norm)
+    else:
+        # no tables -> no verification, no accusations, no bans (the MPRNG
+        # abort rule included): the attack lands in the aggregate
+        n = cfg.n
+        accuse = torch.zeros((n, n), dtype=torch.bool, device=device)
+        sys_accuse = torch.zeros((n,), dtype=torch.bool, device=device)
+        cheated = torch.zeros_like(sys_accuse)
+        banned_now = torch.zeros_like(sys_accuse)
+        cs_viol = torch.zeros((), dtype=torch.int32, device=device)
+        chk_avg = torch.zeros_like(cs_viol)
+        last_checked = state.last_checked
+        reason = torch.zeros_like(state.ban_reason)
+        accused_inc = torch.zeros_like(state.accused_count)
+        new_active = active
 
     next_validator = _elect(cfg, _phase_key(state, 4), new_active)
     g_hat = bf.merge_parts(agg, cfg.d)

@@ -1,38 +1,119 @@
-"""The verifiable aggregation contract of the engine's aggregation phase.
+"""The verifiable aggregation contract of the engine's aggregation phase,
+and the ``verified:<base>`` wrappers that make the coordinatewise
+baselines bannable.
 
-Counterpart of ``repro.core.verification`` for the ``butterfly_clip``
-flagship: ``spec_aggregate`` (aggregation with or without the Alg. 6
-tables), ``spec_tables`` (tables against a given aggregate) and
-``has_zero_checksum``. The ``verified:*`` digest wrappers and the
-``compressed:*`` wire codecs wait for ROADMAP queue 1, items 8 and 9.
+Counterpart of ``repro.core.verification``. For ``butterfly_clip`` the
+broadcast tables are the tau-clipped CenteredClip residuals; a
+``verified:<base>`` spec (mean, trimmed_mean, coordinate_median) reports
+the recomputable per-peer contribution digests instead
+
+    s[i, j]    = <z_j, x_i^j - v_j>,      norm[i, j] = ||x_i^j - v_j||
+
+(no tau), where x_i^j is peer i's slice of partition j and v_j the
+partition's aggregate. Verification 2's zero checksum holds only where the
+digest combines linearly into the aggregate (the CenteredClip fixed point
+and the weighted mean, :func:`has_zero_checksum`); for the nonlinear bases
+a lying aggregator is caught by the validators' partition recompute.
+
+On a CUDA tensor ``verified:mean`` with tables runs the fused mean+digest
+kernel (``kernels.ops.mean_digest_fused_op``); the other bases aggregate in
+torch (sorts) and then run the one-pass digest kernel
+(``kernels.ops.digest_tables_all_op``). ``compressed:*`` specs go to
+``core.compression``, which runs the inner spec over the wire values.
+
+Not ported yet: ``owner_aggregate`` (the launch path's per-owner work,
+ROADMAP queue 1 item 14) and ``digest_tables_rows`` (sampled-digest audits,
+item 10, with TPU kernel #9).
 """
 from __future__ import annotations
 
 from repro_torch.core import aggregators as agg_mod
 from repro_torch.core import butterfly as bf
+from repro_torch.kernels import ops
+
+PREFIX = "verified:"
 
 
-def _flagship_only(spec):
-    if spec.name != "butterfly_clip":
-        raise NotImplementedError(
-            f"aggregator {spec.name!r}: only butterfly_clip is verifiable in "
-            "repro_torch so far (verified:* is ROADMAP queue 1 item 8, "
-            "compressed:* item 9)")
+def is_wrapped(spec_or_name) -> bool:
+    """True for ``verified:<base>`` specs/names."""
+    name = (spec_or_name if isinstance(spec_or_name, str)
+            else agg_mod.resolve_spec(spec_or_name).name)
+    return name.startswith(PREFIX)
+
+
+def base_spec(spec) -> agg_mod.AggregatorSpec:
+    """The coordinatewise spec under a wrapped one (same params)."""
+    spec = agg_mod.resolve_spec(spec)
+    if not is_wrapped(spec):
+        raise ValueError(f"not a {PREFIX}* wrapped spec: {spec.name!r}")
+    return agg_mod.AggregatorSpec(spec.name[len(PREFIX):], spec.params)
+
+
+def verified(spec) -> agg_mod.AggregatorSpec:
+    """Lift a spec into its verifiable form: verifiable specs come back
+    unchanged, coordinatewise ones map to ``verified:<name>`` with the same
+    params, and full-vector ones raise."""
+    spec = agg_mod.resolve_spec(spec)
+    if spec.verifiable:
+        return spec
+    if not spec.coordinatewise:
+        raise ValueError(
+            f"aggregator {spec.name!r} is not coordinatewise: its partition "
+            "contributions are not independently recomputable, so the "
+            "verified: digest wrapper does not apply")
+    wrapped = agg_mod.AggregatorSpec(PREFIX + spec.name, spec.params)
+    wrapped.definition  # eager validation
+    return wrapped
 
 
 def has_zero_checksum(spec) -> bool:
-    """Whether Verification 2's identity sum_i w_i s_i^j ~ 0 holds: true
-    when the digest combines linearly into the aggregate — the CenteredClip
-    fixed point here (and verified:mean, once item 8 ports it)."""
-    return agg_mod.resolve_spec(spec).name == "butterfly_clip"
+    """Whether Verification 2's identity sum_i w_i s_i^j ~ 0 holds: the
+    digest combines linearly into the aggregate — the CenteredClip fixed
+    point and the weighted mean. ``compressed:*`` answers for its inner
+    spec (the identity runs over the wire values)."""
+    spec = agg_mod.resolve_spec(spec)
+    if spec.name.startswith("compressed:"):
+        from repro_torch.core import compression
+
+        spec = compression.inner_spec(spec)
+    return spec.name in ("butterfly_clip", PREFIX + "mean")
+
+
+def digest_tables(grads, agg, z):
+    """The contribution digests of every partition against ``agg``
+    (n_parts, part): s[i, j] = <z_j, x_i^j - v_j>, norm[i, j] =
+    ||x_i^j - v_j||. Returns (s, norms), both (n, n_parts)."""
+    return ops.digest_tables_all_op(grads, grads.shape[0], agg, z)
+
+
+def digest_tables_rows(*args, **kwargs):
+    raise NotImplementedError(
+        "digest_tables_rows (sampled-digest audits, TPU kernel #9) is not "
+        "ported to repro_torch yet (ROADMAP queue 1, item 10)")
+
+
+def owner_aggregate(*args, **kwargs):
+    raise NotImplementedError(
+        "owner_aggregate (the launch path's per-owner aggregation) is not "
+        "ported to repro_torch yet (ROADMAP queue 1, item 14)")
 
 
 def spec_tables(spec, grads, agg, z):
-    """The spec's broadcast tables against a GIVEN aggregate (e.g. a
-    corrupted aggregator's value). Returns (s, norms), both (n, n_parts)."""
+    """A verifiable spec's broadcast tables against a GIVEN aggregate (e.g.
+    a corrupted aggregator's value): clipped residuals for butterfly_clip,
+    plain digests for verified:*. For compressed:* ``grads`` must already
+    be the wire values. Returns (s, norms), both (n, n_parts)."""
     spec = agg_mod.resolve_spec(spec)
-    _flagship_only(spec)
-    return bf.verification_tables(grads, agg, z, spec.get("tau", 1.0))
+    if spec.name.startswith("compressed:"):
+        from repro_torch.core import compression
+
+        return spec_tables(compression.inner_spec(spec), grads, agg, z)
+    if spec.name == "butterfly_clip":
+        return bf.verification_tables(grads, agg, z, spec.get("tau", 1.0))
+    if not is_wrapped(spec):
+        raise ValueError(f"aggregator {spec.name!r} is not verifiable — it "
+                         "has no broadcast tables")
+    return digest_tables(grads, agg, z)
 
 
 def spec_aggregate(spec, grads, z=None, weights=None, v0=None):
@@ -40,12 +121,59 @@ def spec_aggregate(spec, grads, z=None, weights=None, v0=None):
     layout, with (``z`` given) or without the tables.
 
     Returns (agg (n_parts, part), s, norms, iters); s/norms are None when
-    z is None."""
+    z is None. A wrapped base applied to the whole (n, d) matrix equals its
+    per-partition application (it is coordinatewise), so it aggregates once
+    and splits."""
     spec = agg_mod.resolve_spec(spec)
-    _flagship_only(spec)
-    p = spec.param_dict()
-    if not p.get("warm_start"):
-        v0 = None
-    return bf.clip_aggregate(grads, p["tau"], p["n_iters"], z=z,
-                             adaptive_tol=p["adaptive_tol"], weights=weights,
-                             v0=v0)
+    n, d = grads.shape
+    if spec.name.startswith("compressed:"):
+        from repro_torch.core import compression
+
+        return compression.compressed_aggregate(spec, grads, z=z,
+                                                weights=weights, v0=v0)
+    if spec.name == "butterfly_clip":
+        p = spec.param_dict()
+        if not p.get("warm_start"):
+            v0 = None
+        return bf.clip_aggregate(grads, p["tau"], p["n_iters"], z=z,
+                                 adaptive_tol=p["adaptive_tol"],
+                                 weights=weights, v0=v0)
+    if not is_wrapped(spec):
+        raise ValueError(
+            f"aggregator {spec.name!r} is not verifiable — it produces no "
+            "broadcast tables; run it through aggregate() and skip the "
+            "verification phases")
+    base = base_spec(spec)
+    if base.name == "mean" and z is not None:
+        agg, s, norms = ops.mean_digest_fused_op(grads, n, z, weights)
+        return agg, s, norms, 1
+    flat, info = base.build(n, d)(
+        grads, weights if base.weighted else None, None, None)
+    agg = bf.split_parts(flat.float()[None, :], n)[0]
+    if z is None:
+        return agg, None, None, info.iters
+    s, norms = digest_tables(grads, agg, z)
+    return agg, s, norms, info.iters
+
+
+def register_verified_wrappers():
+    """Register ``verified:<name>`` for every coordinatewise baseline:
+    verifiable, not warm-startable, the other flags inherited; the flat
+    maker is the base maker (the tables come from spec_aggregate /
+    spec_tables). Idempotent."""
+    for name, base_def in list(agg_mod.REGISTRY.items()):
+        if base_def.verifiable or not base_def.coordinatewise:
+            continue
+        if PREFIX + name in agg_mod.REGISTRY:
+            continue
+        agg_mod.register(agg_mod.AggregatorDef(
+            PREFIX + name, base_def.make, defaults=base_def.defaults,
+            verifiable=True, weighted=base_def.weighted,
+            warm_startable=False, coordinatewise=True))
+
+
+register_verified_wrappers()
+
+# the compressed:<verifiable> wrappers register on import, after the
+# verified:* ones so that they wrap those too
+import repro_torch.core.compression  # noqa: E402,F401

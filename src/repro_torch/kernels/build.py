@@ -1,10 +1,13 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles each source into a shared library with a plain C
-interface (``-arch sm_90a``), which ``ctypes`` loads; no PyTorch headers are
-involved, so a build takes seconds. Libraries go to ``build/repro_torch/``
-at the root of the checkout (listed in ``.gitignore``), keyed by a hash of
-the source, so an edited kernel is rebuilt and an unchanged one is reused.
+``nvcc`` compiles each source (``centered_clip.cu``: the float32 kernels;
+``wire.cu``: their int8/bf16 wire-payload twins; both include
+``centered_clip.cuh``) into a shared library with a plain C interface
+(``-arch sm_90a``), which ``ctypes`` loads; no PyTorch headers are
+involved, so a build takes seconds, and ``compile_all`` runs one ``nvcc``
+per source, all at once. Libraries go to ``build/repro_torch/`` at the
+root of the checkout (listed in ``.gitignore``), keyed by a hash of the
+sources, so an edited kernel is rebuilt and an unchanged one is reused.
 A failed build or a missing ``nvcc`` raises: nothing falls back to the
 plain versions.
 """
@@ -21,17 +24,33 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
+HEADERS = ("centered_clip.cuh",)
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-# C signature of every launcher in centered_clip.cu (all return an int status)
+# the stack arguments of a pass: x, row stride, part, d, n, P
+_STACK = (_P, _LL, _LL, _LL, _I, _I)
+# C signature of every launcher, per library (all return an int status)
 SIGNATURES = {
-    "cc_sq_pass": (_P, _LL, _LL, _LL, _I, _I, _P, _LL, _I, _P, _P),
-    "cc_update": (_P, _LL, _LL, _LL, _I, _I, _P, _P, _P, _LL, _I, _P, _P, _P,
-                  _F, _P),
-    "cc_dot_pass": (_P, _LL, _LL, _LL, _I, _I, _P, _P, _LL, _I, _P, _P, _P),
-    "cc_finish_weights": (_P, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _F,
-                          _P),
-    "cc_finish_tables": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
+    "centered_clip": {
+        "cc_sq_pass": _STACK + (_P, _LL, _I, _P, _P),
+        "cc_update": _STACK + (_P, _P, _P, _LL, _I, _P, _P, _P, _F, _P),
+        "cc_dot_pass": _STACK + (_P, _P, _LL, _I, _P, _P, _P),
+        "cc_mean_pass": _STACK + (_P, _LL, _I, _P, _P),
+        "cc_finish_weights": (_P, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P,
+                              _F, _P),
+        "cc_finish_tables": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
+        "cc_finish_digests": (_P, _P, _I, _I, _I, _P, _P, _P),
+    },
+    # the same passes with the element type and the (P, n) scales in front
+    # of the stack: (dtype, x, scales, row stride, part, d, n, P, ...)
+    "wire": {
+        "wire_sq_pass": (_I, _P, _P) + _STACK[1:] + (_P, _LL, _I, _P, _P),
+        "wire_update": (_I, _P, _P) + _STACK[1:] + (_P, _P, _P, _LL, _I, _P,
+                                                    _P, _P, _F, _P),
+        "wire_dot_pass": (_I, _P, _P) + _STACK[1:] + (_P, _P, _LL, _I, _P,
+                                                      _P, _P),
+        "wire_mean_pass": (_I, _P, _P) + _STACK[1:] + (_P, _LL, _I, _P, _P),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -46,37 +65,51 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str = "centered_clip") -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def library_path(name: str) -> Path:
+    src = b"".join((CSRC / f).read_bytes()
+                   for f in (f"{name}.cu", *HEADERS))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
-def compile_library(name: str = "centered_clip", verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the hashed library exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
-    return out
+def compile_all(names=tuple(SIGNATURES), verbose: bool = False) -> dict:
+    """Compile ``csrc/<name>.cu`` for every name whose hashed library does
+    not exist yet, one ``nvcc`` per source, all started together. Returns
+    {name: library path}; raises if any build fails."""
+    outs = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+        procs = {}
+        for name, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n"
+                              f"{log}")
+                continue
+            if verbose:
+                print(log, flush=True)
+            os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str = "centered_clip") -> ctypes.CDLL:
     """The loaded library, built first if needed, with argtypes declared."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(compile_library(name)))
-        for fn, args in SIGNATURES.items():
+        lib = ctypes.CDLL(str(compile_all((name,))[name]))
+        for fn, args in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib

@@ -1,25 +1,32 @@
-"""Python wrappers of the CUDA CenteredClip kernels (``csrc/centered_clip.cu``).
+"""Python wrappers of the CUDA CenteredClip and digest kernels
+(``csrc/centered_clip.cu``, ``csrc/wire.cu``).
 
-Each wrapper takes the peer stack as the ``(n, d)`` gradient matrix plus a
-partition count: partition p of peer i is ``grads[i, p*part:(p+1)*part]``
-with ``part = ceil(d / n_parts)``, the butterfly layout (``stacked`` below,
+Each wrapper takes the peer stack as an ``(n, d)`` matrix plus a partition
+count: partition p of peer i is ``x[i, p*part:(p+1)*part]`` with
+``part = ceil(d / n_parts)``, the butterfly layout (``stacked`` below,
 and the JAX package's ``split_parts``) read in place: the ragged tail reads
-as zero. A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
-version in ``kernels/ref.py``, which is also exported (``*_plain``) so the
-kernels can be held against it on the card. Nothing falls back: a failed
-build or launch raises.
+as zero. The matrix is the float32 gradient stack, or for the ``*_dequant``
+wrappers the int8/bf16 wire payloads of ``core.compression`` with their
+(n_parts, n) f32 scales. A CUDA tensor goes to the kernel; a CPU tensor
+goes to the plain version in ``kernels/ref.py``, which is also exported
+(``*_plain``) so the kernels can be held against it on the card. Nothing
+falls back: a failed build or launch raises.
 
 Counterparts of ``repro.kernels.centered_clip`` (Pallas, TPU):
 
-=============================  ==========================================
-wrapper                        replaces
-=============================  ==========================================
-``butterfly_clip_fused``       ``butterfly_clip_fused_pallas``
-``verify_tables_batched``      ``verify_tables_batched_pallas``
-``butterfly_clip_adaptive``    ``adaptive_clip_step_pallas`` under the
-                               ``butterfly_clip_adaptive_pallas`` loop
-``butterfly_clip``             ``butterfly_clip_pallas``
-=============================  ==========================================
+================================  =========================================
+wrapper                           replaces
+================================  =========================================
+``butterfly_clip_fused``          ``butterfly_clip_fused_pallas``
+``verify_tables_batched``         ``verify_tables_batched_pallas``
+``butterfly_clip_adaptive``       ``adaptive_clip_step_pallas`` under the
+                                  ``butterfly_clip_adaptive_pallas`` loop
+``butterfly_clip``                ``butterfly_clip_pallas``
+``mean_digest_fused``             ``mean_digest_fused_pallas``
+``digest_tables_batched``         ``digest_tables_batched_pallas``
+``butterfly_clip_fused_dequant``  ``butterfly_clip_fused_dequant_pallas``
+``mean_digest_fused_dequant``     ``mean_digest_fused_dequant_pallas``
+================================  =========================================
 
 ``LAUNCHES`` counts kernel launches on the card: one per wrapper call, and
 for the adaptive loop one per iteration it runs (its step kernel).
@@ -39,7 +46,13 @@ LAUNCHES = {
     "verify_tables_batched": 0,
     "adaptive_clip_step": 0,
     "butterfly_clip": 0,
+    "mean_digest_fused": 0,
+    "digest_tables_batched": 0,
+    "butterfly_clip_fused_dequant": 0,
+    "mean_digest_fused_dequant": 0,
 }
+# element type of a wire payload -> the kernels' dtype code (csrc/wire.cu)
+WIRE_DTYPES = {torch.int8: 1, torch.bfloat16: 2}
 MAX_PEERS = 32
 # CTAs per pass, spread over the partitions. A constant, not the card's SM
 # count, so the reduction order (and hence every bit) is the same anywhere.
@@ -59,7 +72,8 @@ def part_len(d: int, n_parts: int) -> int:
 def stacked(grads, n_parts):
     """(n, d) -> the (n_parts, n, part) stack, zero-padded: the plain
     versions' input layout (a view, or a padded copy when d is ragged; the
-    kernels read ``grads`` in place)."""
+    kernels read ``grads`` in place). Any dtype: wire payloads pad with
+    wire zeros."""
     n, d = grads.shape
     part = part_len(d, n_parts)
     if n_parts * part != d:
@@ -82,6 +96,26 @@ def verify_tables_batched_plain(grads, n_parts, agg, z, tau):
 
 def butterfly_clip_plain(grads, n_parts, taus, weights=None, v0=None):
     return ref.centered_clip_ref(stacked(grads, n_parts), taus, weights, v0)
+
+
+def digest_tables_batched_plain(grads, n_parts, agg, z):
+    return ref.digest_tables_ref(stacked(grads, n_parts), agg, z)
+
+
+def mean_digest_fused_plain(grads, n_parts, z, weights=None):
+    return ref.mean_digest_fused_ref(stacked(grads, n_parts), z, weights)
+
+
+def butterfly_clip_fused_dequant_plain(qs, scales, n_parts, taus, z,
+                                       tau_v=None, weights=None, v0=None):
+    return ref.centered_clip_fused_dequant_ref(
+        stacked(qs, n_parts), scales, taus, z, tau_v=tau_v, weights=weights,
+        v0=v0)
+
+
+def mean_digest_fused_dequant_plain(qs, scales, n_parts, z, weights=None):
+    return ref.mean_digest_fused_dequant_ref(stacked(qs, n_parts), scales, z,
+                                             weights)
 
 
 def butterfly_clip_adaptive_plain(grads, n_parts, tau, tol, max_iters,
@@ -124,16 +158,25 @@ def _check(status: int, what: str):
 
 class _Stack:
     """Validated kernel arguments for the (n, d) stack read as n_parts
-    partitions, plus the pass geometry (chunk size cs, C chunks)."""
+    partitions, plus the pass geometry (chunk size cs, C chunks). A float32
+    stack runs the passes of ``csrc/centered_clip.cu``; an int8/bf16 wire
+    stack, with its (n_parts, n) f32 ``scales``, those of ``csrc/wire.cu``.
+    The finishing kernels read only partial sums and are the float32
+    library's either way."""
 
-    def __init__(self, grads, n_parts):
+    def __init__(self, grads, n_parts, scales=None):
         from repro_torch.kernels import build
 
-        if grads.dtype != torch.float32 or grads.dim() != 2:
-            raise ValueError(f"grads must be (n, d) float32, got "
-                             f"{tuple(grads.shape)} {grads.dtype}")
+        wire = WIRE_DTYPES.get(grads.dtype)
+        if grads.dim() != 2 or (wire is None) != (grads.dtype == torch.float32):
+            raise ValueError(f"the stack must be (n, d) float32, int8 or "
+                             f"bfloat16, got {tuple(grads.shape)} "
+                             f"{grads.dtype}")
+        if (wire is None) != (scales is None):
+            raise ValueError("scales go with an int8/bf16 wire stack and "
+                             "only with one")
         if grads.stride(1) != 1:
-            raise ValueError("grads must have unit column stride")
+            raise ValueError("the stack must have unit column stride")
         self.n, self.d = grads.shape
         if not 1 <= self.n <= MAX_PEERS:
             raise ValueError(f"the kernels take 1..{MAX_PEERS} peers, "
@@ -145,10 +188,21 @@ class _Stack:
         c = max(1, min(-(-self.part // THREADS), -(-TARGET_CTAS // self.P)))
         self.cs = -(-self.part // c)
         self.C = -(-self.part // self.cs)
-        self.lib = build.load()
+        self.lib = build.load("centered_clip")
         self.stream = torch.cuda.current_stream(self.device).cuda_stream
-        self.args = (grads.data_ptr(), grads.stride(0), self.part, self.d,
-                     self.n, self.P)
+        stack = (grads.stride(0), self.part, self.d, self.n, self.P)
+        if wire is None:
+            self.passes, self.prefix = self.lib, "cc_"
+            self.args = (grads.data_ptr(), *stack)
+        else:
+            self.scales = self.f32(scales, (self.P, self.n), "scales")
+            self.passes, self.prefix = build.load("wire"), "wire_"
+            self.args = (wire, grads.data_ptr(), self.scales.data_ptr(),
+                         *stack)
+
+    def _pass(self, name, *args):
+        fn = getattr(self.passes, self.prefix + name)
+        _check(fn(*self.args, *args, self.stream), f"{name} ({self.prefix})")
 
     def f32(self, t, shape, name):
         t = t.to(device=self.device, dtype=torch.float32).contiguous()
@@ -173,20 +227,19 @@ class _Stack:
         return self.f32(v0, (self.P, self.part), "v0").clone()
 
     def sq_pass(self, v, sq_part):
-        _check(self.lib.cc_sq_pass(*self.args, _ptr(v), self.cs, self.C,
-                                   _ptr(sq_part), self.stream), "sq pass")
+        self._pass("sq_pass", _ptr(v), self.cs, self.C, _ptr(sq_part))
 
     def update(self, v, cw, wsum, sq_part=None, d2_part=None, d2=None,
                tol2=0.0):
-        _check(self.lib.cc_update(*self.args, _ptr(v), _ptr(cw), _ptr(wsum),
-                                  self.cs, self.C, _ptr(sq_part),
-                                  _ptr(d2_part), _ptr(d2), tol2,
-                                  self.stream), "update pass")
+        self._pass("update", _ptr(v), _ptr(cw), _ptr(wsum), self.cs, self.C,
+                   _ptr(sq_part), _ptr(d2_part), _ptr(d2), tol2)
 
     def dot_pass(self, v, z, dot_part, sq_part=None):
-        _check(self.lib.cc_dot_pass(*self.args, _ptr(v), _ptr(z), self.cs,
-                                    self.C, _ptr(dot_part), _ptr(sq_part),
-                                    self.stream), "dot pass")
+        self._pass("dot_pass", _ptr(v), _ptr(z), self.cs, self.C,
+                   _ptr(dot_part), _ptr(sq_part))
+
+    def mean_pass(self, w, v):
+        self._pass("mean_pass", _ptr(w), self.cs, self.C, _ptr(v))
 
     def finish_weights(self, sq_part, w, tau, sq, cw, wsum=None,
                        d2_part=None, d2=None, iters=None, tol2=0.0):
@@ -202,6 +255,11 @@ class _Stack:
             self.n, float(tau), _ptr(s), _ptr(norms), self.stream),
             "finish tables")
 
+    def finish_digests(self, dot_part, sq_part, s, norms):
+        _check(self.lib.cc_finish_digests(
+            _ptr(dot_part), _ptr(sq_part), self.P, self.C, self.n, _ptr(s),
+            _ptr(norms), self.stream), "finish digests")
+
 
 def _on_cuda(grads) -> bool:
     """True for a CUDA tensor (kernel), False for a CPU one (plain)."""
@@ -210,6 +268,26 @@ def _on_cuda(grads) -> bool:
     if grads.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain path for device {grads.device}")
+
+
+def _fused_clip(k, taus, z, tau_v, weights, v0):
+    """The passes of the fused kernel over a validated stack ``k``:
+    a norm prologue, len(taus) updates carrying the next norms, the table
+    epilogue. Returns (v, s, norms)."""
+    w, v = k.weights(weights), k.start(v0)
+    z = k.f32(z, (k.P, k.part), "z")
+    sq_part, dot_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
+    sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
+    k.sq_pass(v, sq_part)  # prologue: ||x_i - v0||^2
+    k.finish_weights(sq_part, w, taus[0] if taus else tau_v, sq, cw, wsum)
+    for it, tau in enumerate(taus):
+        k.update(v, cw, wsum, sq_part=sq_part)
+        k.finish_weights(sq_part, w, taus[min(it + 1, len(taus) - 1)], sq,
+                         cw)
+    s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
+    k.dot_pass(v, z, dot_part)  # epilogue: <x_i - v, z>; sq is carried
+    k.finish_tables(dot_part, tau_v, s, norms, sq_in=sq)
+    return v, s, norms
 
 
 def butterfly_clip_fused(grads, n_parts, taus, z, tau_v=None, weights=None,
@@ -224,22 +302,27 @@ def butterfly_clip_fused(grads, n_parts, taus, z, tau_v=None, weights=None,
     if not _on_cuda(grads):
         return butterfly_clip_fused_plain(grads, n_parts, taus, z, tau_v,
                                           weights, v0)
-    k = _Stack(grads, n_parts)
-    w, v = k.weights(weights), k.start(v0)
-    z = k.f32(z, (k.P, k.part), "z")
-    sq_part, dot_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
-    sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
-    k.sq_pass(v, sq_part)  # prologue: ||x_i - v0||^2
-    k.finish_weights(sq_part, w, taus[0] if taus else tau_v, sq, cw, wsum)
-    for it, tau in enumerate(taus):
-        k.update(v, cw, wsum, sq_part=sq_part)
-        k.finish_weights(sq_part, w, taus[min(it + 1, len(taus) - 1)], sq,
-                         cw)
-    s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
-    k.dot_pass(v, z, dot_part)  # epilogue: <x_i - v, z>; sq is carried
-    k.finish_tables(dot_part, tau_v, s, norms, sq_in=sq)
+    out = _fused_clip(_Stack(grads, n_parts), taus, z, tau_v, weights, v0)
     LAUNCHES["butterfly_clip_fused"] += 1
-    return v, s, norms
+    return out
+
+
+def butterfly_clip_fused_dequant(qs, scales, n_parts, taus, z, tau_v=None,
+                                 weights=None, v0=None):
+    """``butterfly_clip_fused`` over wire payloads: qs (n, d) int8/bf16,
+    scales (n_parts, n) f32, each element dequantized in registers as
+    f32(q) * scale, so the result is bit for bit that of
+    ``butterfly_clip_fused`` on ``dequantize(qs, scales)`` while every pass
+    reads 1-2 bytes per element."""
+    taus = [float(t) for t in taus]
+    tau_v = taus[-1] if tau_v is None else float(tau_v)
+    if not _on_cuda(qs):
+        return butterfly_clip_fused_dequant_plain(qs, scales, n_parts, taus,
+                                                  z, tau_v, weights, v0)
+    out = _fused_clip(_Stack(qs, n_parts, scales), taus, z, tau_v, weights,
+                      v0)
+    LAUNCHES["butterfly_clip_fused_dequant"] += 1
+    return out
 
 
 def verify_tables_batched(grads, n_parts, agg, z, tau):
@@ -304,3 +387,58 @@ def butterfly_clip(grads, n_parts, taus, weights=None, v0=None):
         k.update(v, cw, wsum)
     LAUNCHES["butterfly_clip"] += 1
     return v
+
+
+def digest_tables_batched(grads, n_parts, agg, z):
+    """The verified:* digests of every partition against a given aggregate,
+    in one pass: s_i = <z, x_i - v>, norm_i = ||x_i - v||, no clip weight.
+    agg, z: (n_parts, part). Returns (s, norms), (n_parts, n)."""
+    if not _on_cuda(grads):
+        return digest_tables_batched_plain(grads, n_parts, agg, z)
+    k = _Stack(grads, n_parts)
+    agg = k.f32(agg, (k.P, k.part), "agg")
+    z = k.f32(z, (k.P, k.part), "z")
+    dot_part, sq_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
+    s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
+    k.dot_pass(agg, z, dot_part, sq_part=sq_part)
+    k.finish_digests(dot_part, sq_part, s, norms)
+    LAUNCHES["digest_tables_batched"] += 1
+    return s, norms
+
+
+def _mean_digest(k, z, weights):
+    """The two passes of verified:mean over a validated stack ``k``: the
+    weighted mean, then the digests against it. Returns (v, s, norms)."""
+    w = k.weights(weights)
+    z = k.f32(z, (k.P, k.part), "z")
+    v = k.empty(k.P, k.part)
+    dot_part, sq_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
+    s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
+    k.mean_pass(w, v)
+    k.dot_pass(v, z, dot_part, sq_part=sq_part)
+    k.finish_digests(dot_part, sq_part, s, norms)
+    return v, s, norms
+
+
+def mean_digest_fused(grads, n_parts, z, weights=None):
+    """verified:mean in two passes of the stack: v = sum_i w_i x_i /
+    max(sum_i w_i, 1e-30) per partition, then the digests against v.
+    z: (n_parts, part); weights: (n,). Returns (agg (n_parts, part),
+    s (n_parts, n), norms (n_parts, n))."""
+    if not _on_cuda(grads):
+        return mean_digest_fused_plain(grads, n_parts, z, weights)
+    out = _mean_digest(_Stack(grads, n_parts), z, weights)
+    LAUNCHES["mean_digest_fused"] += 1
+    return out
+
+
+def mean_digest_fused_dequant(qs, scales, n_parts, z, weights=None):
+    """``mean_digest_fused`` over wire payloads (qs (n, d) int8/bf16,
+    scales (n_parts, n)), dequantized in registers: bit for bit the result
+    on ``dequantize(qs, scales)``."""
+    if not _on_cuda(qs):
+        return mean_digest_fused_dequant_plain(qs, scales, n_parts, z,
+                                               weights)
+    out = _mean_digest(_Stack(qs, n_parts, scales), z, weights)
+    LAUNCHES["mean_digest_fused_dequant"] += 1
+    return out

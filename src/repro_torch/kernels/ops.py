@@ -1,8 +1,9 @@
 """Public wrappers around the CenteredClip kernels, named as
 ``repro.kernels.ops``.
 
-The peer stack is the (n, d) gradient matrix read as ``n_parts``
-partitions (``kernels.centered_clip``); s/norms come back transposed to the
+The peer stack is the (n, d) gradient matrix, or its (n, d) int8/bf16
+wire payloads with (n_parts, n) scales, read as ``n_parts`` partitions
+(``kernels.centered_clip``); s/norms come back transposed to the
 (peer, partition) layout of ``core.butterfly.verification_tables``. The
 device of ``grads`` decides the path: a CUDA tensor runs the kernels, a CPU
 tensor the plain versions. There is no switch beside that.
@@ -52,3 +53,36 @@ def verify_tables_all_op(grads, n_parts, agg, z, tau):
     (s (n, n_parts), norms (n, n_parts))."""
     s, norms = _k.verify_tables_batched(grads, n_parts, agg, z, tau)
     return s.T, norms.T
+
+
+def digest_tables_all_op(grads, n_parts, agg, z):
+    """All-partition verified:* digests against a given aggregate (one
+    pass, no clip weight) -> (s (n, n_parts), norms (n, n_parts))."""
+    s, norms = _k.digest_tables_batched(grads, n_parts, agg, z)
+    return s.T, norms.T
+
+
+def mean_digest_fused_op(grads, n_parts, z, weights=None):
+    """verified:mean's aggregation and digests in two passes ->
+    (agg (n_parts, part), s (n, n_parts), norms (n, n_parts))."""
+    agg, s, norms = _k.mean_digest_fused(grads, n_parts, z, weights)
+    return agg, s.T, norms.T
+
+
+def butterfly_clip_fused_dequant_op(qs, scales, n_parts, tau, z,
+                                    weights=None, tau_v=None, v0=None, *,
+                                    n_iters: int = 20):
+    """``butterfly_clip_fused_op`` over wire payloads: qs (n, d) int8/bf16,
+    scales (n_parts, n) f32 -> (agg, s (n, n_parts), norms (n, n_parts))."""
+    agg, s, norms = _k.butterfly_clip_fused_dequant(
+        qs, scales, n_parts, [tau] * n_iters, z, tau_v=tau_v,
+        weights=weights, v0=v0)
+    return agg, s.T, norms.T
+
+
+def mean_digest_fused_dequant_op(qs, scales, n_parts, z, weights=None):
+    """``mean_digest_fused_op`` over wire payloads: qs (n, d) int8/bf16,
+    scales (n_parts, n) f32 -> (agg, s (n, n_parts), norms (n, n_parts))."""
+    agg, s, norms = _k.mean_digest_fused_dequant(qs, scales, n_parts, z,
+                                                 weights)
+    return agg, s.T, norms.T

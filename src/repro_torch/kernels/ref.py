@@ -15,7 +15,11 @@ kernel's dataflow:
   from x), then the table epilogue. The JAX oracle carries the same
   recurrence in its expanded form; this one uses the kernels' direct form,
   so a fixed budget and an adaptive run at tol = 0 agree bit for bit;
-* ``verify_tables_ref`` — the tau-clipped digest and norm in one pass.
+* ``verify_tables_ref`` — the tau-clipped digest and norm in one pass;
+* ``digest_tables_ref`` — the verified:* digests, the same without tau;
+* ``mean_digest_fused_ref`` — the weighted mean, then its digests;
+* ``dequantize_ref`` and the ``*_dequant_ref`` twins — the same functions
+  over int8/bf16 wire payloads, dequantized as ``f32(q) * scale``.
 """
 from __future__ import annotations
 
@@ -101,3 +105,43 @@ def verify_tables_ref(xs, v, z, tau):
     norms = torch.linalg.vector_norm(diff, dim=-1)
     dots = (diff * z.to(torch.float32).unsqueeze(-2)).sum(-1)
     return _clip(norms, tau) * dots, norms
+
+
+def digest_tables_ref(xs, v, z):
+    """The verified:* digests: s_i = <z, x_i - v>, norm_i = ||x_i - v||
+    (no clip weight). xs (..., n, d); v, z (..., d). Returns (s, norms),
+    both (..., n)."""
+    diff = xs.to(torch.float32) - v.to(torch.float32).unsqueeze(-2)
+    dots = (diff * z.to(torch.float32).unsqueeze(-2)).sum(-1)
+    return dots, torch.linalg.vector_norm(diff, dim=-1)
+
+
+def mean_digest_fused_ref(xs, z, weights=None):
+    """verified:mean: v = sum_i w_i x_i / max(sum_i w_i, 1e-30), then the
+    digests against it. xs (..., n, d); z (..., d); weights (n,).
+    Returns (v (..., d), s (..., n), norms (..., n)) f32."""
+    xs = xs.to(torch.float32)
+    w = _peer_weights(weights, xs)
+    v = (w[:, None] * xs).sum(-2) / torch.clamp(w.sum(), min=1e-30)
+    s, norms = digest_tables_ref(xs, v, z)
+    return v, s, norms
+
+
+def dequantize_ref(wire, scales):
+    """Wire payloads -> f32: upcast, then one f32 multiply by the payload's
+    scale (``core.compression.dequantize``). wire (..., d) int8/bf16;
+    scales (...)."""
+    return wire.to(torch.float32) * scales.to(torch.float32)[..., None]
+
+
+def centered_clip_fused_dequant_ref(qs, scales, taus, z, tau_v=None,
+                                    weights=None, v0=None):
+    """``centered_clip_fused_ref`` over dequantized wire payloads.
+    qs (..., n, d) int8/bf16; scales (..., n)."""
+    return centered_clip_fused_ref(dequantize_ref(qs, scales), taus, z,
+                                   tau_v=tau_v, weights=weights, v0=v0)
+
+
+def mean_digest_fused_dequant_ref(qs, scales, z, weights=None):
+    """``mean_digest_fused_ref`` over dequantized wire payloads."""
+    return mean_digest_fused_ref(dequantize_ref(qs, scales), z, weights)

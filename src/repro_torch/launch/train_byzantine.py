@@ -8,9 +8,13 @@ line, plus ``--device`` (default ``cuda``).
   PYTHONPATH=src python -m repro_torch.launch.train_byzantine \\
       --model albert_large --device cpu --steps 3
 
-Only the model path is ported: the toy classifier (no ``--model``) and the
-baseline ``--defense`` choices other than ``btard`` wait for ROADMAP
-queue 1, items 4 and 7.
+``--aggregator`` takes any ported spec (``butterfly_clip[:...]``,
+``verified:mean``, ``verified:trimmed_mean``, ``verified:coordinate_median``,
+``compressed:<spec>[:codec=int8|bf16]``) and overrides ``--defense``, which
+takes ``btard`` or the baselines ``mean``, ``coordinate_median``,
+``trimmed_mean``. Only the model path is ported: the toy classifier (no
+``--model``) and the ``geometric_median``, ``krum`` and ``centered_clip``
+defenses wait for ROADMAP queue 1, items 7 and 4.
 """
 from __future__ import annotations
 
@@ -46,8 +50,10 @@ def build_parser():
     ap.add_argument("--model", default=None, metavar="ARCH",
                     help="the LM to train (albert_large)")
     ap.add_argument("--aggregator", default=None,
-                    help="AggregatorSpec string, e.g. "
-                         "butterfly_clip:warm_start=true,adaptive_tol=1e-4")
+                    help="AggregatorSpec string (overrides --defense), e.g. "
+                         "butterfly_clip:warm_start=true,adaptive_tol=1e-4, "
+                         "verified:trimmed_mean:trim_ratio=0.25 or "
+                         "compressed:verified:mean:codec=bf16")
     ap.add_argument("--full", action="store_true",
                     help="full-size config (default: reduced smoke variant)")
     ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
@@ -68,8 +74,6 @@ def run_model(args, attack=None):
     summary, seconds of each step)."""
     if args.model is None:
         raise SystemExit("the toy classifier is not ported yet; pass --model")
-    if args.defense != "btard" and args.aggregator is None:
-        raise SystemExit(f"--defense {args.defense} is not ported yet")
     peers = args.peers or 4
     n_byz = 1 if args.byzantine is None else args.byzantine
     steps = args.steps or 6
@@ -82,6 +86,7 @@ def run_model(args, attack=None):
         attack=attack or AttackConfig(kind=args.attack,
                                       start_step=args.attack_start or 0,
                                       delay=5),
+        defense=args.defense if args.aggregator is None else "btard",
         aggregator=args.aggregator,
         tau=args.tau,
         clip_iters=args.clip_iters or 5,

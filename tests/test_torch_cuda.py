@@ -1,6 +1,7 @@
-"""Kernels #1-#4 on the card: each CUDA kernel against its plain PyTorch
+"""Kernels #1-#8 on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (rtol = atol = 1e-5), bitwise repeatable,
-launch counted. Marked ``cuda``; skips without a CUDA device. Run on the
+launch counted; the wire-payload twins #7 and #8 give the bits of #1 and
+#5 on the dequantized payloads. Marked ``cuda``; skips without a CUDA device. Run on the
 GPU machine with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -77,3 +78,52 @@ def test_adaptive_at_tol_zero_is_fixed_budget_bitwise_on_card(cuda):
     adapt, iters = kc.butterfly_clip_adaptive(g, n, 1.0, 0.0, 6, w, v)
     assert torch.equal(adapt, fixed)
     assert iters.tolist() == [6] * n
+
+
+def _wire(g, n, codec):
+    from repro_torch.core import compression
+
+    return compression.quantize_grads(g, codec, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_digest_and_wire_kernels_match_plain_versions_on_card(cuda, shape,
+                                                              codec):
+    n, d = shape
+    g, z, v, w = _inputs(n, d, cuda)
+    g[1, :kc.part_len(d, n)] = 0.0  # an all-zero payload: int8 scale 0
+    q, sc = _wire(g, n, codec)
+    taus = [1.0] * 5
+    _check(lambda: kc.digest_tables_batched(g, n, v, z),
+           lambda: kc.digest_tables_batched_plain(g, n, v, z),
+           "digest_tables_batched")
+    _check(lambda: kc.mean_digest_fused(g, n, z, w),
+           lambda: kc.mean_digest_fused_plain(g, n, z, w),
+           "mean_digest_fused")
+    _check(lambda: kc.butterfly_clip_fused_dequant(q, sc, n, taus, z, None,
+                                                   w, v),
+           lambda: kc.butterfly_clip_fused_dequant_plain(q, sc, n, taus, z,
+                                                         None, w, v),
+           "butterfly_clip_fused_dequant")
+    _check(lambda: kc.mean_digest_fused_dequant(q, sc, n, z, w),
+           lambda: kc.mean_digest_fused_dequant_plain(q, sc, n, z, w),
+           "mean_digest_fused_dequant")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+def test_wire_kernels_equal_f32_kernels_on_dequantized_bitwise(cuda, codec):
+    from repro_torch.core import compression
+
+    n, d = SHAPES[1]
+    g, z, v, w = _inputs(n, d, cuda)
+    q, sc = _wire(g, n, codec)
+    xd = compression.wire_grads(g, codec, n)
+    a = kc.butterfly_clip_fused_dequant(q, sc, n, [1.0] * 5, z, None, w, v)
+    b = kc.butterfly_clip_fused(xd, n, [1.0] * 5, z, None, w, v)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = kc.mean_digest_fused_dequant(q, sc, n, z, w)
+    b = kc.mean_digest_fused(xd, n, z, w)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

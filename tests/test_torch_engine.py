@@ -2,8 +2,10 @@
 package's (repro.core.engine): the same init_state(seed) and the same
 numpy gradients give EXACTLY the same seed, validators, accusation
 matrices, system accusations, ban sets and ban reasons, and g_hat within
-1e-5 — over the attack grid, with the fixed and the adaptive warm-started
-spec; then a few scanned steps give the same ban steps."""
+1e-5 — over the attack grid, with the flagship (fixed and adaptive
+warm-started), the verified:* wrappers and the compressed:* wire codecs;
+then a few scanned steps give the same ban steps, honest runs accuse
+no one, and the non-verifiable baselines match with no bans."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,16 @@ SPECS = {
     "fixed": {},
     "adaptive_warm": {"aggregator":
                       "butterfly_clip:warm_start=true,adaptive_tol=1e-4"},
+    "verified_mean": {"aggregator": "verified:mean"},
+    "verified_trimmed_mean": {"aggregator":
+                              "verified:trimmed_mean:trim_ratio=0.25"},
+    "verified_coordinate_median": {"aggregator":
+                                   "verified:coordinate_median"},
+    "compressed_butterfly_clip": {"aggregator": "compressed:butterfly_clip"},
+    "compressed_verified_mean_bf16": {
+        "aggregator": "compressed:verified:mean:codec=bf16"},
 }
+BASELINES = ("mean", "coordinate_median", "trimmed_mean")
 ATTACKS = {
     "sign_flip": dict(kind="sign_flip"),
     "random_direction": dict(kind="random_direction"),
@@ -62,7 +73,7 @@ def _assert_outputs_equal(jout, tout):
                                rtol=1e-5, atol=1e-5)
 
 
-def _assert_states_equal(jst, tst):
+def _assert_states_equal(jst, tst, scale=1.0):
     assert tst.step == int(jst.step)
     for name in ("active", "validator", "ban_step", "ban_reason",
                  "accused_count", "last_checked", "col_checked"):
@@ -70,7 +81,7 @@ def _assert_states_equal(jst, tst):
             getattr(tst, name).numpy(), np.asarray(getattr(jst, name)),
             err_msg=name)
     np.testing.assert_allclose(tst.prev_agg.numpy(), np.asarray(jst.prev_agg),
-                               rtol=1e-5, atol=1e-5)
+                               rtol=1e-5, atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("spec", list(SPECS))
@@ -126,7 +137,12 @@ def test_scanned_steps_ban_steps_equal_jax(attack, spec):
         tcfg, teng.init_state(tcfg, seed=0, device="cpu"),
         torch.from_numpy(_byz()), torch.zeros(D), tgrads, steps,
         update_fn=lambda p, g, t: p - 0.05 * g)
-    _assert_states_equal(jst, tst)
+    # the mean-based wrappers let the 1000x sign flip into the first
+    # step's aggregate, so the parameters reach ~1e6 and the two
+    # frameworks' f32 summation orders differ at 1e-5 of that scale
+    scale = (1.0 if spec in ("fixed", "adaptive_warm")
+             else max(1.0, float(np.abs(np.asarray(jp)).max())))
+    _assert_states_equal(jst, tst, scale)
     for k, tout in enumerate(touts):
         jout = jax.tree.map(lambda a: a[k], jouts)
         for name in ("banned_now", "ban_reason_now", "accuse_mat",
@@ -135,16 +151,83 @@ def test_scanned_steps_ban_steps_equal_jax(attack, spec):
                 getattr(tout, name).numpy(), np.asarray(getattr(jout, name)),
                 err_msg=f"step {k} {name}")
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5,
-                               atol=1e-5)
+                               atol=1e-5 * scale)
     assert (tst.ban_step.numpy() >= 0).any() or attack == "aggregator"
 
 
 def test_engine_config_rejects_unported_branches():
+    """The branches this port still lacks raise, naming their ROADMAP
+    item: elastic membership, hierarchical groups, sampled audits and the
+    full-vector baselines."""
     for kw in (dict(n_events=2), dict(groups=2), dict(audit_k=1)):
         with pytest.raises(NotImplementedError):
             teng.EngineConfig(n=4, d=8, **kw)
-    with pytest.raises(NotImplementedError):
-        teng.EngineConfig(n=4, d=8, aggregator="verified:mean").agg_spec()
+    for name in ("krum", "geometric_median", "centered_clip"):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            teng.EngineConfig(n=4, d=8, aggregator=name).agg_spec()
+
+
+@pytest.mark.parametrize("spec", [s for s in SPECS if s != "adaptive_warm"])
+def test_honest_steps_accuse_no_one(spec):
+    """Honest multi-step runs (the JAX package's
+    tests/test_verification_grid.py and tests/test_compression.py
+    acceptance): no peer or system accusation, no ban, on either engine."""
+    steps = 12
+    jcfg = jeng.config_from_attack(N, D, JAttack(), tau=1.0,
+                                   clip_iters=200, m_validators=3,
+                                   **SPECS[spec])
+    tcfg = teng.config_from_attack(N, D, TAttack(), tau=1.0,
+                                   clip_iters=200, m_validators=3,
+                                   **SPECS[spec])
+    X, y = _linear_problem(steps)
+    tX, ty = torch.from_numpy(X), torch.from_numpy(y)
+
+    def tgrads(p, t, flips):
+        r = torch.einsum("nbd,d->nb", tX[t], p) - ty[t]
+        G = 2.0 * torch.einsum("nbd,nb->nd", tX[t], r) / 4.0
+        return G, G
+
+    none = torch.zeros(N)
+    tst, _, touts = teng.scan_protocol(
+        tcfg, teng.init_state(tcfg, seed=0, device="cpu"), none,
+        torch.zeros(D), tgrads, steps, update_fn=lambda p, g, t: p - 0.05 * g)
+    for out in touts:
+        assert not out.accuse_mat.any() and not out.sys_accuse.any(), spec
+        assert not out.banned_now.any(), spec
+    assert (tst.ban_step == -1).all()
+    jX, jy = jnp.asarray(X), jnp.asarray(y)
+
+    def jgrads(p, t, flips):
+        r = jnp.einsum("nbd,d->nb", jX[t], p) - jy[t]
+        G = 2.0 * jnp.einsum("nbd,nb->nd", jX[t], r) / 4.0
+        return G, G
+
+    jst, _, jouts = jeng.scan_protocol(
+        jcfg, jeng.init_state(jcfg, seed=0), jnp.zeros(N), jnp.zeros(D),
+        jgrads, steps, update_fn=lambda p, g, t: p - 0.05 * g)
+    assert not np.asarray(jouts.accuse_mat).any()
+    _assert_states_equal(jst, tst)
+
+
+@pytest.mark.parametrize("attack", ["sign_flip", "aggregator"])
+@pytest.mark.parametrize("base", BASELINES)
+def test_baselines_run_without_verification_like_jax(base, attack):
+    """--defense mean|coordinate_median|trimmed_mean: the non-verifiable
+    branch aggregates every active peer (no validator set-aside) and
+    accuses and bans no one, as the JAX engine does."""
+    jcfg, tcfg = _configs(attack, "fixed", aggregator=base)
+    G = _grads(2)
+    jst = jeng.init_state(jcfg, seed=4)
+    tst = teng.init_state(tcfg, seed=4, device="cpu")
+    for _ in range(2):
+        jst, jout = jeng.protocol_step(jcfg, jst, jnp.asarray(_byz()),
+                                       jnp.asarray(G), jnp.asarray(G))
+        tG = torch.from_numpy(G)
+        tst, tout = teng.protocol_step(tcfg, tst, torch.from_numpy(_byz()),
+                                       tG, tG)
+        _assert_outputs_equal(jout, tout)
+        _assert_states_equal(jst, tst)
+        assert not tout.banned_now.any() and not tout.accuse_mat.any()
 
 
 @pytest.mark.parametrize("text", [
@@ -152,6 +235,8 @@ def test_engine_config_rejects_unported_branches():
     "butterfly_clip:tau=2.5,n_iters=7",
     "butterfly_clip:warm_start=true,adaptive_tol=1e-4",
     "butterfly_clip:adaptive_tol=none",
+    "mean",
+    "trimmed_mean:trim_ratio=0.1",
 ])
 def test_spec_grammar_round_trips_like_jax(text):
     from repro.core.aggregators import AggregatorSpec as JSpec

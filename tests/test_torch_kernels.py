@@ -260,3 +260,148 @@ def test_wrappers_refuse_other_devices_and_shapes():
     with pytest.raises(ValueError):
         tkc.verify_tables_batched(meta, N, _t(z), _t(z), 1.0)
     assert tkc.MAX_PEERS >= 16
+
+
+# ---------------------------------------------------------------------------
+# Kernels #5-#8: the verified:* digests and the wire-payload twins
+# ---------------------------------------------------------------------------
+CODECS = ("int8", "bf16")
+
+
+def _jwire(G, codec):
+    """The JAX package's wire payloads of the stack: (qs (n_parts, n, part)
+    wire dtype, scales (n_parts, n)), plus the port's kernel input, the
+    (n, d) payload matrix with the same bits."""
+    from repro.core import compression as jcomp
+
+    n, d = G.shape
+    jq, jsc = jcomp.quantize(_jparts(G), codec)
+    q = np.array(jq)  # a writable copy
+    if codec == "bf16":  # ml_dtypes bfloat16 -> its bits -> torch bfloat16
+        q = torch.from_numpy(q.view(np.int16)).view(torch.bfloat16)
+    else:
+        q = torch.from_numpy(q)
+    q = q.transpose(0, 1).reshape(n, -1)[:, :d]
+    return jq, jsc, q, _t(jsc)
+
+
+def _zero_payload(G):
+    """Peer 1's slice of partition 0 all zero: its int8 scale is 0."""
+    G = G.copy()
+    G[1, :-(-G.shape[1] // G.shape[0])] = 0.0
+    return G
+
+
+def test_digest_kernel_matches_jax():
+    """#6 digest_tables_batched: the tau-less digests against a given
+    aggregate, ragged partitions."""
+    G, z, _, agg = _inputs(8)
+    before = dict(tkc.LAUNCHES)
+    js, jn = jops.digest_tables_all_op(_jparts(G), jnp.asarray(agg),
+                                       jnp.asarray(z))
+    ts, tn = tops.digest_tables_all_op(_t(G), N, _t(agg), _t(z))
+    _close(ts, js)
+    _close(tn, jn)
+    assert tkc.LAUNCHES == before, "a CPU tensor must not reach a kernel"
+
+
+@pytest.mark.parametrize("wkey", list(WEIGHTS))
+def test_mean_digest_kernel_matches_jax(wkey):
+    """#5 mean_digest_fused: the weighted mean and its digests, with the
+    banned and sat-out peers at weight zero."""
+    G, z, _, _ = _inputs(9)
+    w = WEIGHTS[wkey]
+    ja, js, jn = jops.mean_digest_fused_op(
+        _jparts(G), jnp.asarray(z), None if w is None else jnp.asarray(w))
+    ta, ts, tn = tops.mean_digest_fused_op(_t(G), N, _t(z), _t(w))
+    _close(ta, ja)
+    _close(ts, js)
+    _close(tn, jn)
+
+
+@pytest.mark.parametrize("wkey", ["all", "banned_and_validator"])
+@pytest.mark.parametrize("codec", CODECS)
+def test_dequant_kernels_match_jax(codec, wkey):
+    """#7 butterfly_clip_fused_dequant (every tau) and #8
+    mean_digest_fused_dequant over the JAX package's wire payloads, with
+    an all-zero payload (int8 scale 0) and a ragged last partition."""
+    G, z, _, _ = _inputs(10)
+    G = _zero_payload(G)
+    w = WEIGHTS[wkey]
+    jw = None if w is None else jnp.asarray(w)
+    jq, jsc, q, sc = _jwire(G, codec)
+    if codec == "int8":
+        assert float(sc[0, 1]) == 0.0
+    for tau in TAUS:
+        ja, js, jn = jops.butterfly_clip_fused_dequant_op(
+            jq, jsc, tau, jnp.asarray(z), jw, n_iters=K)
+        ta, ts, tn = tops.butterfly_clip_fused_dequant_op(
+            q, sc, N, tau, _t(z), _t(w), n_iters=K)
+        _close(ta, ja)
+        _close(ts, js)
+        _close(tn, jn)
+    ja, js, jn = jops.mean_digest_fused_dequant_op(jq, jsc, jnp.asarray(z),
+                                                   jw)
+    ta, ts, tn = tops.mean_digest_fused_dequant_op(q, sc, N, _t(z), _t(w))
+    _close(ta, ja)
+    _close(ts, js)
+    _close(tn, jn)
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_dequant_twins_equal_f32_kernels_on_dequantized_bitwise(codec):
+    """The contract the card holds #7 and #8 to, on the plain versions:
+    over (q, s) they give the bits of #1 and #5 on dequantize(q, s)."""
+    G, z, v0, _ = _inputs(11)
+    _, _, q, sc = _jwire(_zero_payload(G), codec)
+    xd = tkc.stacked(q, N).to(torch.float32) * sc[..., None]
+    xd = xd.transpose(0, 1).reshape(N, -1)[:, :D]
+    w = _t(WEIGHTS["banned"])
+    a = tkc.butterfly_clip_fused_dequant(q, sc, N, [1.0] * K, _t(z),
+                                         weights=w, v0=_t(v0))
+    b = tkc.butterfly_clip_fused(xd, N, [1.0] * K, _t(z), weights=w,
+                                 v0=_t(v0))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = tkc.mean_digest_fused_dequant(q, sc, N, _t(z), w)
+    b = tkc.mean_digest_fused(xd, N, _t(z), w)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_new_plain_versions_match_jax_oracles(codec):
+    """kernels/ref.py #5-#8 oracles, one partition at a time, against the
+    JAX package's kernels/ref.py."""
+    G, z, _, agg = _inputs(12)
+    G = _zero_payload(G)
+    w = WEIGHTS["banned_and_validator"]
+    jq, jsc, q, sc = _jwire(G, codec)
+    xs = tkc.stacked(_t(G), N)
+    qs = tkc.stacked(q, N)
+    t_ds, t_dn = tref.digest_tables_ref(xs, _t(agg), _t(z))
+    t_mv, t_ms, t_mn = tref.mean_digest_fused_ref(xs, _t(z), _t(w))
+    t_dq = tref.dequantize_ref(qs, sc)
+    t_cv, t_cs, t_cn = tref.centered_clip_fused_dequant_ref(
+        qs, sc, [1.0] * K, _t(z), weights=_t(w))
+    t_qv, t_qs, t_qn = tref.mean_digest_fused_dequant_ref(qs, sc, _t(z),
+                                                          _t(w))
+    jx = np.asarray(_jparts(G))
+    jtaus = jnp.full((K,), 1.0, jnp.float32)
+    for p in range(N):
+        x, zp = jnp.asarray(jx[p]), jnp.asarray(z[p])
+        js, jn = jref.digest_tables_ref(x, jnp.asarray(agg[p]), zp)
+        _close(t_ds[p], js)
+        _close(t_dn[p], jn)
+        for t, j in zip((t_mv[p], t_ms[p], t_mn[p]),
+                        jref.mean_digest_fused_ref(x, zp, jnp.asarray(w))):
+            _close(t, j)
+        np.testing.assert_array_equal(
+            t_dq[p].numpy(), np.asarray(jref.dequantize_ref(jq[p], jsc[p])))
+        for t, j in zip((t_cv[p], t_cs[p], t_cn[p]),
+                        jref.centered_clip_fused_dequant_ref(
+                            jq[p], jsc[p], jtaus, zp,
+                            weights=jnp.asarray(w))):
+            _close(t, j)
+        for t, j in zip((t_qv[p], t_qs[p], t_qn[p]),
+                        jref.mean_digest_fused_dequant_ref(
+                            jq[p], jsc[p], zp, jnp.asarray(w))):
+            _close(t, j)

@@ -2,7 +2,9 @@
 package's on a small ALBERT (one shared block applied twice, f32), 4 peers,
 one sign-flip attacker, 2 validators, 4 steps — the same peers banned at
 the same steps for the same reasons, no honest peer accused, and the final
-flat parameters within 1e-4."""
+flat parameters within 1e-4; with the flagship, and with verified:mean and
+compressed:butterfly_clip through --aggregator."""
+import pytest
 import dataclasses
 
 import jax
@@ -45,11 +47,12 @@ def _config(cls, attack_cls, **kw):
                tau=1.0, clip_iters=5, m_validators=2, **kw)
 
 
-def test_run_scan_bans_and_params_match_jax():
+def _run_both(**kw):
     jm = JModel(dataclasses.replace(JCONFIG, **SMALL))
     jparams = jm.init_params(jax.random.key(0))
     jloss, jbatch = _setup(jm, JPipeline(512, SEQ, BATCH))
-    jtr = JTrainer(jloss, jparams, jbatch, _config(JTrainerConfig, JAttack),
+    jtr = JTrainer(jloss, jparams, jbatch,
+                   _config(JTrainerConfig, JAttack, **kw),
                    optimizer=jsgd(0.05))
     jtr.run_scan(STEPS)
 
@@ -57,10 +60,13 @@ def test_run_scan_bans_and_params_match_jax():
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams))
     tloss, tbatch = _setup(tm, TPipeline(512, SEQ, BATCH))
     ttr = TTrainer(tloss, tparams, tbatch,
-                   _config(TTrainerConfig, TAttack, device="cpu"),
+                   _config(TTrainerConfig, TAttack, device="cpu", **kw),
                    optimizer=tsgd(0.05))
     ttr.run_scan(STEPS)
+    return jtr, ttr
 
+
+def _assert_histories_equal(jtr, ttr):
     assert [r["banned_now"] for r in ttr.history] == \
         [r["banned_now"] for r in jtr.history]
     assert ttr.banned == jtr.banned == set(BYZ)
@@ -71,6 +77,34 @@ def test_run_scan_bans_and_params_match_jax():
         np.testing.assert_allclose(t["grad_norm"], j["grad_norm"], rtol=1e-4)
         assert t["clip_iters_used"] == j["clip_iters_used"]
         assert t["accused_peers"] == j["accused_peers"], (t, j)
+    assert ttr.validators == jtr.protocol.validators
+
+
+def test_run_scan_bans_and_params_match_jax():
+    jtr, ttr = _run_both()
+    _assert_histories_equal(jtr, ttr)
     np.testing.assert_allclose(ttr.params.numpy(), np.asarray(jtr.params),
                                rtol=1e-4, atol=1e-4)
-    assert ttr.validators == jtr.protocol.validators
+
+
+@pytest.mark.parametrize("aggregator", ["verified:mean",
+                                        "compressed:butterfly_clip"])
+def test_run_scan_wrapped_specs_match_jax(aggregator):
+    jtr, ttr = _run_both(aggregator=aggregator)
+    _assert_histories_equal(jtr, ttr)
+    np.testing.assert_allclose(ttr.params.numpy(), np.asarray(jtr.params),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_run_scan_baseline_defense_matches_jax():
+    """--defense coordinate_median: the non-verifiable baseline through the
+    trainer — no validators set aside, no accusations, no bans, and the
+    same grad norms and parameters as the JAX trainer."""
+    jtr, ttr = _run_both(defense="coordinate_median")
+    assert ttr.banned == jtr.protocol.banned == set()
+    for t, j in zip(ttr.history, jtr.history):
+        assert t["banned_now"] == j["banned_now"] == []
+        assert t["accused_peers"] == j["accused_peers"] == []
+        np.testing.assert_allclose(t["grad_norm"], j["grad_norm"], rtol=1e-4)
+    np.testing.assert_allclose(ttr.params.numpy(), np.asarray(jtr.params),
+                               rtol=1e-4, atol=1e-4)
