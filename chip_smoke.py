@@ -12,7 +12,10 @@ Phases, each printing its own line:
      payload (scale 0): within rtol = atol = 1e-5 per element and 1e-5 of
      each output's largest value, bitwise equal over two runs, timed with
      CUDA events; the wire kernels give the bits of their float32 twins on
-     the dequantized payloads;
+     the dequantized payloads; the sampled-digest kernel (#9, rows out of
+     order, tau in {0, 1, inf}, an all-zero payload among the sampled
+     partitions) gives the bits of #2 (tau > 0) or #6 (tau = 0) at the
+     sampled rows;
   3. the main path: ``repro_torch.launch.train_byzantine`` on full-width
      ALBERT-large (bf16 storage, d = 78,223,360), 4 peers, one sign-flip
      attacker, 2 validators, 5 clip iterations, seq 128, batch 4, 6 steps;
@@ -22,7 +25,13 @@ Phases, each printing its own line:
      3 steps each with the same peers and attacker: verified:mean (#5),
      verified:trimmed_mean (#6), verified:mean under the aggregator attack
      (#6), compressed:butterfly_clip with int8 payloads (#7) and
-     compressed:verified:mean with bf16 payloads (#8);
+     compressed:verified:mean with bf16 payloads (#8); then the flat-cost
+     verification paths, driven through ``engine.scan_protocol`` with
+     ``EngineConfig(audit_k=1, groups=...)`` for ``staleness_bound`` steps:
+     (f) sampled butterfly_clip, 4 peers (#4 and #9 once a step), (g)
+     sampled verified:mean under the aggregator attack, 4 peers (#9 once a
+     step), (h) hierarchical butterfly with 2 groups of 4 and sampling, 8
+     peers (#1 once per group, #6 once for level 2, each step);
   5. the launches of every kernel per path.
 
 Before the last line it prints the card's name and power limit and a JSON
@@ -64,6 +73,7 @@ KERNELS = {  # wrapper's launch-count name -> (TPU kernel it replaces, source)
                               f"{CSRC}/centered_clip.cu"),
     "butterfly_clip_fused_dequant": (f"{TPU_KERNELS}:512", f"{CSRC}/wire.cu"),
     "mean_digest_fused_dequant": (f"{TPU_KERNELS}:1120", f"{CSRC}/wire.cu"),
+    "digest_tables_rows": (f"{TPU_KERNELS}:953", f"{CSRC}/centered_clip.cu"),
 }
 # the wire codec each dequantizing kernel's path runs (its timed case)
 PATH_CODEC = {"butterfly_clip_fused_dequant": "int8",
@@ -97,6 +107,15 @@ def time_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed(fn):
+    """(fn(), seconds) on the host clock around synchronized work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def max_err(a, b):
@@ -241,6 +260,42 @@ def digest_and_wire_cases(grads, n_parts, tau, weights, gen):
     return cases
 
 
+def rows_cases(grads, n_parts, rows, gen):
+    """Kernel #9's cases, one per tau in {0, 1, inf}: (tau, kernel call,
+    plain call, bound bytes, operations, moved bytes, twin call), as in
+    ``digest_and_wire_cases``. Bound and moved bytes are one pass of the k
+    sampled partitions: their n payloads, their rows of agg and z, the
+    row ids, and the (k, n) outputs. The twin is the full all-partition
+    kernel at the sampled rows (#2 for tau > 0, #6 for tau = 0), whose
+    bits #9 must give."""
+    from repro_torch.kernels import centered_clip as kc
+
+    n, d = grads.shape
+    part = kc.part_len(d, n_parts)
+    dev = grads.device
+    z = torch.randn((n_parts, part), generator=gen, device=dev)
+    z = z / torch.linalg.vector_norm(z, dim=1, keepdim=True)
+    agg = (0.1 / math.sqrt(part)) * torch.randn((n_parts, part),
+                                                generator=gen, device=dev)
+    k = len(rows)
+    nbytes = (k * n * part + 2 * k * part + k + 2 * k * n) * 4
+
+    def twin(tau):
+        if tau > 0:
+            full = kc.verify_tables_batched(grads, n_parts, agg, z, tau)
+        else:
+            full = kc.digest_tables_batched(grads, n_parts, agg, z)
+        return tuple(x[rows] for x in full)
+
+    return [(tau,
+             lambda tau=tau: kc.digest_tables_rows(grads, n_parts, agg, z,
+                                                   rows, tau),
+             lambda tau=tau: kc.digest_tables_rows_plain(grads, n_parts, agg,
+                                                         z, rows, tau),
+             nbytes, k * n * part * 5, nbytes, lambda tau=tau: twin(tau))
+            for tau in (0.0, 1.0, math.inf)]
+
+
 def stack(n, d, gen, dev):
     """Peer gradients with partition norms near 1 and one outlier peer."""
     part = -(-d // n)
@@ -264,8 +319,9 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
           f"max abs err {err:.3e}, relative {rel:.3e}")
     if twin is not None:
         check(bitwise(out1, as_tuple(twin())),
-              f"{tag}: not the bits of the float32 kernel on the "
-              "dequantized payloads")
+              f"{tag}: not the bits of its twin (the float32 kernel on the "
+              "dequantized payloads, or the full-table kernel at the "
+              "sampled rows)")
     st = stats.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
     st["max_abs_err"] = max(st["max_abs_err"], err)
     st["max_rel_err"] = max(st["max_rel_err"], rel)
@@ -317,6 +373,17 @@ def phase_kernels(dev):
                            else other.setdefault(codec, {}))
                     hold(own, name, f"{name} {codec or 'f32'} {label}", kern,
                          plain, nbytes, ops, moved, full, twin)
+        # #9 over the sampled partitions (out of order), one of them with
+        # an all-zero payload; timed at the sampled flagship's tau = 1
+        rows = [n_parts - 1, 1] if d == d_full else [n_parts - 1, 0, 2]
+        part = kc.part_len(d, n_parts)
+        zero_payload[1, rows[-1] * part:(rows[-1] + 1) * part] = 0.0
+        for tau, kern, plain, nbytes, ops, moved, twin in rows_cases(
+                zero_payload, n_parts, rows, gen):
+            hold(stats, "digest_tables_rows",
+                 f"digest_tables_rows n={n} d={d} rows={rows} tau={tau}",
+                 kern, plain, nbytes, ops, moved,
+                 d == d_full and tau == 1.0, twin)
         del grads, zero_payload
         torch.cuda.empty_cache()
     keep = ("ms", "plain_ms", "bound_ms", "moved_bytes")
@@ -328,12 +395,14 @@ def phase_kernels(dev):
             for k in ("max_abs_err", "max_rel_err"):
                 main[k] = max(main[k], st[k])
             main["by_codec"][codec] = {k: st[k] for k in keep}
-    print("phase 2: kernels #1-#8 agree with their plain versions within "
+    print("phase 2: kernels #1-#9 agree with their plain versions within "
           f"rtol=atol={RTOL:g} (max relative error "
           f"{max(st['max_rel_err'] for st in stats.values()):.3e}), repeat "
-          "bitwise, and the wire kernels equal their float32 twins on the "
-          f"dequantized payloads bit for bit ({len(shapes)} shapes x tau "
-          "{1, inf} x weights x codecs {int8, bf16})", flush=True)
+          "bitwise, the wire kernels equal their float32 twins on the "
+          "dequantized payloads bit for bit, and the sampled-digest kernel "
+          "equals #2/#6 at the sampled rows bit for bit "
+          f"({len(shapes)} shapes x tau {{1, inf}} (#9 also 0) x weights x "
+          "codecs {int8, bf16})", flush=True)
     kc.reset_launch_counts()
     return stats
 
@@ -348,13 +417,6 @@ def step_breakdown(tr):
     from repro_torch.core import butterfly as bf
     from repro_torch.core import engine as eng
     from repro_torch.core import prng
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     ecfg, st = tr.engine_config, tr.state
     _, batch_s = timed(lambda: tr.batch_fn(0, st.step, False))
@@ -418,6 +480,117 @@ def run_path(label, argv, attack=None, expect=(), breakdown=False,
     return summary, counts
 
 
+def run_engine_path(label, n, aggregator, attack, launches, groups=None):
+    """Drive the engine the way the JAX package's sampled/hierarchical
+    tests do: ALBERT-large from ``lm_setup``, per-peer gradients through
+    ``engine.device_data_grads_fn``, an ``EngineConfig`` with ``audit_k`` /
+    ``groups`` from ``config_from_attack``, ``engine.scan_protocol`` with
+    ``sgd`` as the update, one step per call so each is timed, for
+    ``staleness_bound(n, m, audit_k)`` steps. The launch counts are set to
+    0 just before and read just after. Checks: the attacker (the last peer)
+    is banned inside that window, no honest peer is accused or banned,
+    every g_hat is finite, every column's audit age stays within the
+    bound, and ``launches`` gives the exact count of every kernel (all
+    others 0). Returns the launch counts."""
+    from repro_torch.core import engine as eng
+    from repro_torch.core import hierarchy as hier
+    from repro_torch.core.flatten import FlatBoundary, tree_unflatten
+    from repro_torch.core.protocol import AttackConfig
+    from repro_torch.kernels import centered_clip as kc
+    from repro_torch.models.workload import lm_setup
+    from repro_torch.optim import apply_updates, sgd
+
+    m, audit_k, device = 2, 1, "cuda"
+    loss_fn, params0, batch_fn, _ = lm_setup(
+        "albert_large", seq_len=128, batch_size=4, reduced=False,
+        device=device)
+    boundary = FlatBoundary(params0)
+    params = boundary.flatten(params0)
+    del params0
+
+    def grad_fn(flat, batch):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in boundary.unflatten_leaves(flat)]
+        loss = loss_fn(tree_unflatten(boundary.template, leaves), batch)
+        return boundary.flatten_leaves(torch.autograd.grad(loss, leaves))
+
+    opt = sgd(0.05)
+
+    def update_fn(p, g_hat, t):
+        upd, _ = opt.update(g_hat, {}, p, t)
+        return apply_updates(p, upd)
+
+    grads_fn = eng.device_data_grads_fn(n, batch_fn, grad_fn)
+    cfg = eng.config_from_attack(
+        n, boundary.d, AttackConfig(**attack), tau=1.0,
+        clip_iters=CLIP_ITERS, m_validators=m, aggregator=aggregator,
+        audit_k=audit_k, groups=groups)
+    byz = [n - 1]
+    byz_mask = torch.tensor([1.0 if i in byz else 0.0 for i in range(n)],
+                            device=device)
+    bound = hier.staleness_bound(n, m, audit_k)
+    state = eng.init_state(cfg, seed=0, device=device)
+    seconds, outs = [], []
+    kc.reset_launch_counts()
+    for _ in range(bound):
+        (state, params, out), sec = timed(lambda: eng.scan_protocol(
+            cfg, state, byz_mask, params, grads_fn, 1, update_fn))
+        seconds.append(sec)
+        outs += out
+        age = int((state.step - 1 - state.col_checked).max())
+        check(age <= bound, f"{label}: audit age {age} > bound {bound}")
+    counts = dict(kc.LAUNCHES)
+    honest = [i for i in range(n) if i not in byz]
+    ban_step = state.ban_step.tolist()
+    check(all(0 <= ban_step[i] < bound for i in byz),
+          f"{label}: attacker not banned within {bound} steps: {ban_step}")
+    check(all(ban_step[i] == -1 for i in honest),
+          f"{label}: honest peer banned: {ban_step}")
+    for t, out in enumerate(outs):
+        check(bool(torch.isfinite(out.g_hat).all()),
+              f"{label}: non-finite g_hat at step {t}")
+        accused = (out.accuse_mat.any(dim=0) | out.sys_accuse).tolist()
+        check(not any(accused[i] for i in honest),
+              f"{label}: honest peer accused at step {t}: {accused}")
+    want = {name: launches.get(name, 0) * bound for name in counts}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    print(f"{label}: median step {statistics.median(seconds):.3f} s over "
+          f"{len(seconds)} steps (staleness bound) "
+          f"{[round(x, 4) for x in seconds]}; attacker banned at step "
+          f"{[ban_step[i] for i in byz]}; launches {counts}", flush=True)
+    parts = engine_breakdown(cfg, state, byz_mask, params, grads_fn)
+    print(f"{label}: one more step, seconds by part "
+          + json.dumps({k: round(v, 4) for k, v in parts.items()}),
+          flush=True)
+    del params, state, outs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def engine_breakdown(cfg, state, byz_mask, params, grads_fn):
+    """Seconds of the parts of one more engine step (host clock around
+    synchronized work): the n peers' gradients, the protocol step, and the
+    unit-direction draws inside it (z1 and z2 in the hierarchical
+    butterfly, z in the flat one)."""
+    from repro_torch.core import butterfly as bf
+    from repro_torch.core import engine as eng
+    from repro_torch.core import hierarchy as hier
+    from repro_torch.core import prng
+
+    flips = eng.flip_mask(cfg, state, byz_mask)
+    (G, H), grads_s = timed(lambda: grads_fn(params, state.step, flips))
+    key = prng.key(123, device=params.device)
+    g, gs = hier.group_shape(cfg.n, cfg.groups)
+    shapes = [(gs, bf.pad_to_parts(cfg.d, gs) // gs)]
+    if g > 1:
+        shapes.append((g, bf.pad_to_parts(cfg.d, g) // g))
+    z_s = sum(timed(lambda s=s: bf.get_random_directions(key, *s))[1]
+              for s in shapes)
+    _, proto_s = timed(lambda: eng.protocol_step(cfg, state, byz_mask, G, H))
+    return {"grads_all_peers": grads_s, "protocol_step": proto_s,
+            "z_draws_in_protocol": z_s}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -478,6 +651,25 @@ def main():
             f"phase 4 ({label}: {aggregator})",
             common + ["--steps", "3", "--aggregator", aggregator],
             attack=attack, breakdown=True, launches={kernel: 3})
+    # the flat-cost verification paths, driven through the engine with
+    # EngineConfig(audit_k=..., groups=...): (label, peers, aggregator,
+    # attack, kernel launches per step, groups)
+    sign_flip = {"kind": "sign_flip"}
+    engine_paths = [
+        ("sampled_flagship", 4, None, sign_flip,
+         {"butterfly_clip": 1, "digest_tables_rows": 1}, None),
+        ("sampled_verified_mean_aggregator_attack", 4, "verified:mean",
+         {"kind": "none", "aggregator_attack": True,
+          "aggregator_scale": 5.0}, {"digest_tables_rows": 1}, None),
+        ("hier_sampled_flagship", 8, None, sign_flip,
+         {"butterfly_clip_fused": 2, "digest_tables_batched": 1}, 2),
+    ]
+    for tag, (label, n, aggregator, attack, per_step, groups) in zip(
+            "fgh", engine_paths):
+        paths[label] = run_engine_path(
+            f"phase 4 ({tag}) {label}: n={n} {aggregator or 'butterfly_clip'}"
+            f" audit_k=1 groups={groups}", n, aggregator, attack, per_step,
+            groups=groups)
 
     print("phase 5: kernels launched per path: " + json.dumps(paths),
           flush=True)
@@ -487,7 +679,8 @@ def main():
             "mean_digest_fused": "verified_mean",
             "digest_tables_batched": "verified_trimmed_mean",
             "butterfly_clip_fused_dequant": "compressed_butterfly_clip",
-            "mean_digest_fused_dequant": "compressed_verified_mean_bf16"}
+            "mean_digest_fused_dequant": "compressed_verified_mean_bf16",
+            "digest_tables_rows": "sampled_flagship"}
     rows = []
     for name, (replaces, source) in KERNELS.items():
         st = stats[name]

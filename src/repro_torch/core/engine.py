@@ -13,15 +13,19 @@ Where the JAX package runs N steps under ``lax.scan``, this is a Python
 loop (:func:`scan_protocol`); ``state.step`` is a Python int, so the
 attack window and the per-step key folds are host decisions.
 
-The flat verifiable branch runs any verifiable spec (``butterfly_clip``,
+The verifiable branches run any verifiable spec (``butterfly_clip``,
 ``verified:*``, ``compressed:*``); for a ``compressed:*`` spec the
 commitment compares, the table recompute and the checksum tolerance run
 over the wire projection of the gradients. Non-verifiable specs (the
 coordinatewise baselines) aggregate with no tables, accusations or bans.
+The flat-cost verification of ``core.hierarchy`` is here too: with
+``audit_k`` only the sampled digest columns are computed (one pass of the
+sampled partitions) and the ``col_checked`` ledger tracks each column's
+audit age; with ``groups`` the hierarchical butterfly (:func:`phase_hier`)
+replaces the flat aggregation and verification.
 
-Not ported here (``EngineConfig`` rejects them): elastic membership
-(``n_events``), hierarchical butterflies (``groups``) and sampled-digest
-audits (``audit_k``) — ROADMAP queue 1, items 10-11.
+Not ported here (``EngineConfig`` rejects it): elastic membership
+(``n_events``), ROADMAP queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from repro_torch.core import aggregators as agg_mod
 from repro_torch.core import attacks as attacks_mod
 from repro_torch.core import butterfly as bf
 from repro_torch.core import compression as comp_mod
+from repro_torch.core import hierarchy as hier_mod
 from repro_torch.core import prng
 from repro_torch.core import verification as verif_mod
 
@@ -83,6 +88,8 @@ class StepOutputs(NamedTuple):
     n_active: torch.Tensor  # () i32, active count at step start
     validators: torch.Tensor  # (n,) f32, this step's validator mask
     clip_iters_used: int  # largest CenteredClip budget any partition ran
+    sampled_parts: torch.Tensor  # (n,) bool, digest columns broadcast this
+    # step (all True when sampled-digest audits are off)
 
 
 @dataclass(frozen=True)
@@ -114,14 +121,10 @@ class EngineConfig:
     n_events: int = 0
 
     def __post_init__(self):
-        if self.audit_k is not None:
-            raise NotImplementedError(
-                "audit_k (sampled-digest audits) is not ported to "
-                "repro_torch yet (ROADMAP queue 1, item 10)")
-        if self.groups is not None and self.groups > 1:
-            raise NotImplementedError(
-                "groups > 1 (hierarchical butterfly) is not ported to "
-                "repro_torch yet (ROADMAP queue 1, item 10)")
+        if self.audit_k is not None and self.audit_k < 1:
+            raise ValueError("audit_k must be >= 1 (None = full tables)")
+        if self.hierarchical:
+            hier_mod.group_shape(self.n, self.groups)  # validates n % g
         if self.n_events:
             raise NotImplementedError(
                 "n_events > 0 (elastic membership) is not ported to "
@@ -132,6 +135,10 @@ class EngineConfig:
         return agg_mod.resolve_spec(self.aggregator).with_defaults(
             tau=self.tau, n_iters=self.clip_iters, max_iters=self.clip_iters,
             adaptive_tol=self.adaptive_tol, warm_start=self.warm_start)
+
+    @property
+    def hierarchical(self) -> bool:
+        return self.groups is not None and self.groups > 1
 
     @property
     def n_parts(self) -> int:
@@ -255,13 +262,36 @@ def phase_mprng(cfg, state, byz):
     return seed, mprng_ban
 
 
-def phase_aggregation(cfg, state, G, weights, seed):
+def _scatter_cols(values, idx, n, n_cols):
+    """(n, k) sampled-column tables -> zero (n, n_cols) tables with column
+    idx[j] = values[:, j]. Unsampled columns are zero on both the reported
+    and the recomputed side, so every mismatch, checksum and vote term is
+    silent there."""
+    out = torch.zeros((n, n_cols), dtype=torch.float32, device=values.device)
+    out[:, idx.long()] = values
+    return out
+
+
+def _sampled_tables(cfg, grads, agg, z, samp_idx):
+    """The tables of the sampled columns only (one pass of the sampled
+    partitions of ``grads``) against ``agg``, scattered into zero
+    (n, n_parts) tables. Returns (s_tbl, norm_tbl)."""
+    s_r, n_r = verif_mod.digest_tables_rows(cfg.agg_spec(), grads, agg, z,
+                                            samp_idx)
+    return (_scatter_cols(s_r, samp_idx, cfg.n, cfg.n_parts),
+            _scatter_cols(n_r, samp_idx, cfg.n, cfg.n_parts))
+
+
+def phase_aggregation(cfg, state, G, weights, seed, samp_idx=None,
+                      G_cmp=None):
     """Spec-dispatched robust aggregation. Verifiable specs run
     ``verification.spec_aggregate`` with the tables (unless the aggregator
-    attack needs them recomputed against the corrupted value); the
-    non-verifiable baselines run their flat fn, with no tables (z, s_tbl,
-    norm_tbl come back None). Returns (agg, z, s_tbl, norm_tbl,
-    iters_used)."""
+    attack needs them recomputed against the corrupted value); under
+    sampled-digest audits (``samp_idx``) they aggregate without tables and
+    then digest only the sampled columns of ``G_cmp`` (the wire values for
+    a compressed spec), scattered into zero tables. The non-verifiable
+    baselines run their flat fn, with no tables (z, s_tbl, norm_tbl come
+    back None). Returns (agg, z, s_tbl, norm_tbl, iters_used)."""
     spec = cfg.agg_spec()
     if not spec.verifiable:
         flat, info = spec.build(cfg.n, cfg.d)(
@@ -274,19 +304,28 @@ def phase_aggregation(cfg, state, G, weights, seed):
     if spec.warm_startable and spec.get("warm_start", False):
         v0 = (state.prev_agg if state.step > 0
               else torch.zeros_like(state.prev_agg))
-    if cfg.aggregator_attack and cfg.aggregator_scale > 0:
+    attacking_agg = cfg.aggregator_attack and cfg.aggregator_scale > 0
+    if attacking_agg or samp_idx is not None:
+        # no fused tables: the aggregator attack recomputes them against
+        # the corrupted value, sampled audits digest the sampled columns
         agg, _s, _n, iters = verif_mod.spec_aggregate(
             spec, G, z=None, weights=weights, v0=v0)
-        return agg, z, None, None, iters
+        if attacking_agg:
+            return agg, z, None, None, iters
+        return (agg, z, *_sampled_tables(cfg, G_cmp, agg, z, samp_idx),
+                iters)
     agg, s_tbl, norm_tbl, iters = verif_mod.spec_aggregate(
         spec, G, z=z, weights=weights, v0=v0)
     return agg, z, s_tbl, norm_tbl, iters
 
 
-def phase_aggregator_attack(cfg, state, agg, G, z, byz, weights):
+def phase_aggregator_attack(cfg, state, agg, G, z, byz, weights,
+                            samp_idx=None):
     """Byzantine aggregators corrupt their partitions; every peer then
     reports tables against the value it received (over the wire values
-    ``G`` for a compressed spec)."""
+    ``G`` for a compressed spec). Under sampled-digest audits only the
+    sampled columns exist, so a corrupted unsampled column goes unseen
+    until its turn, within the staleness bound."""
     honest_agg = agg
     corrupt = torch.zeros((cfg.n_parts,), dtype=torch.bool, device=agg.device)
     if not (cfg.aggregator_attack and cfg.aggregator_scale > 0):
@@ -295,7 +334,10 @@ def phase_aggregator_attack(cfg, state, agg, G, z, byz, weights):
         corrupt = byz & (state.active > 0)
         agg = attacks_mod.aggregator_shift_all(
             agg, corrupt, _phase_key(state, 3), cfg.aggregator_scale)
-    s_tbl, norm_tbl = verif_mod.spec_tables(cfg.agg_spec(), G, agg, z)
+    if samp_idx is not None:
+        s_tbl, norm_tbl = _sampled_tables(cfg, G, agg, z, samp_idx)
+    else:
+        s_tbl, norm_tbl = verif_mod.spec_tables(cfg.agg_spec(), G, agg, z)
     return agg, honest_agg, corrupt, s_tbl, norm_tbl
 
 
@@ -422,6 +464,148 @@ def phase_accuse_ban(cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban,
     return new_active, banned_now, reason, cheated, accused.to(torch.int32)
 
 
+def _block_diag(blocks):
+    """(g, gs, gs) blocks -> the (n, n) matrix with block a at rows and
+    columns a*gs .. (a+1)*gs, zero (False) elsewhere."""
+    g, gs = blocks.shape[0], blocks.shape[1]
+    out = torch.zeros((g * gs, g * gs), dtype=blocks.dtype,
+                      device=blocks.device)
+    for a in range(g):
+        out[a * gs:(a + 1) * gs, a * gs:(a + 1) * gs] = blocks[a]
+    return out
+
+
+def phase_hier(cfg, state, byz, weights, seed, G, G_cmp, honest_G_cmp,
+               samp_mask, mprng_ban):
+    """The hierarchical butterfly-of-butterflies: aggregation, aggregator
+    attack, misreport, verification and accuse/ban in the two-level
+    topology (``core.hierarchy``).
+
+    Level 1: each group of gs = n/groups peers runs the spec over its own
+    butterfly, with gs x gs tables per group. Level 2: the linear leader
+    combine with its always-on zero-sum checksum; a violated
+    super-partition implicates its group's leader. Accusations stay
+    (n, n): the level-1 blocks go on the diagonal, so
+    :func:`phase_accuse_ban` runs unchanged. ``samp_mask`` (n,) composes
+    sampled-digest audits in: global cell a*gs + c guards column c of group
+    a's tables.
+
+    Returns the tail the flat verifiable branch produces, plus the global
+    aggregate in the (n_parts, part) layout and the iteration budget.
+    """
+    n = cfg.n
+    g, gs = hier_mod.group_shape(n, cfg.groups)
+    active = state.active
+    active_b = active > 0
+    att = _attacking(cfg, state.step)
+    spec = cfg.agg_spec()
+
+    attacking_agg = bool(cfg.aggregator_attack and cfg.aggregator_scale > 0)
+    v0_flat = None
+    if spec.warm_startable and spec.get("warm_start", False):
+        v0_flat = (bf.merge_parts(state.prev_agg, cfg.d) if state.step > 0
+                   else torch.zeros((cfg.d,), device=G.device))
+    h = hier_mod.hier_aggregate(spec, G, weights, seed, cfg.groups,
+                                v0_flat=v0_flat,
+                                with_tables=not attacking_agg)
+    u, s1, norms1 = h.u, h.s1, h.norms1
+    part1 = u.shape[-1]
+    corrupt = torch.zeros((n,), dtype=torch.bool, device=G.device)
+    if attacking_agg:
+        # cell (a, r) of the level-1 aggregate is owned by peer a*gs + r,
+        # so the flat (n,)-masked shift applies to the (n, part1) reshape
+        if att:
+            corrupt = byz & active_b
+            u = attacks_mod.aggregator_shift_all(
+                u.reshape(n, part1), corrupt, _phase_key(state, 3),
+                cfg.aggregator_scale).reshape(u.shape)
+        s1, norms1 = hier_mod.hier_tables(spec, G_cmp, u, h.z1)
+
+    wg = weights.reshape(g, gs)
+    if samp_mask is not None:
+        samp_h = samp_mask.reshape(g, gs)[:, None, :]
+        s1 = torch.where(samp_h, s1, 0.0)
+        norms1 = torch.where(samp_h, norms1, 0.0)
+    true_s1, true_norm1 = s1, norms1
+    # per group: its first active colluder cancels its group's checksum
+    # for the corrupted columns
+    s1 = torch.stack([
+        phase_misreport(cfg, s1[a], corrupt.reshape(g, gs)[a],
+                        byz.reshape(g, gs)[a], active.reshape(g, gs)[a],
+                        wg[a])
+        for a in range(g)])
+
+    # level 2: honest leaders relay faithfully, so reported == recomputed
+    # and the linear checksum is the alarm for a group-level corruption
+    lvl2 = hier_mod.level2_combine(u, h.group_w, cfg.d, seed)
+    v_flat = bf.merge_parts(lvl2.v2, cfg.d)
+    agg_std = bf.split_parts(v_flat[None, :], cfg.n_parts)[0]
+
+    # ---- V1/V2/V3 per group, the level-2 checksum, validator audits ----
+    mm_norm = (norms1 - true_norm1).abs() > 1e-4 * (1.0 + true_norm1)
+    mm_s = (s1 - true_s1).abs() > 1e-4 * (1.0 + true_s1.abs())
+    agg_ok_g = (active_b & ~byz).reshape(g, gs)
+    accuse = _block_diag(agg_ok_g[:, :, None]
+                         & (mm_norm | mm_s).transpose(1, 2))
+    mismatch_s = _block_diag(mm_s)
+
+    if verif_mod.has_zero_checksum(spec):
+        cs_tol = torch.stack([
+            bf.checksum_tolerance(u[a], G_cmp[a * gs:(a + 1) * gs])
+            for a in range(g)])
+        sums1 = (s1 * wg[:, :, None]).sum(1)  # (g, gs) per group column
+        sys_accuse = (sums1.abs() > cs_tol[:, None]).reshape(n)
+    else:
+        sys_accuse = torch.zeros_like(active_b)
+    cs2_tol = bf.checksum_tolerance(lvl2.v2, lvl2.u_flat)
+    sums2 = (lvl2.s2 * h.group_w[:, None]).sum(0)  # (g,)
+    leader_accuse = torch.zeros_like(active_b)
+    leader_accuse[torch.arange(g, device=G.device) * gs] = \
+        sums2.abs() > cs2_tol
+    sys_accuse = sys_accuse | leader_accuse
+    checksum_violations = sys_accuse.sum().to(torch.int32)
+
+    check_averaging = torch.zeros((), dtype=torch.int32, device=G.device)
+    if cfg.delta_max is not None:
+        # group-majority Delta_max vote over the group's weight mass
+        votes = ((true_norm1 > cfg.delta_max) * wg[:, :, None]).sum(1)
+        v3 = (votes > wg.sum(dim=1, keepdim=True) / 2.0).reshape(n)
+        check_averaging = v3.sum().to(torch.int32)
+        sys_accuse = sys_accuse | v3
+
+    # validator CHOOSETARGET audit: a full-peer recompute, independent of
+    # the digest sampling and of the topology
+    target, valid_audit, is_validator, target_hot, audited = _choose_targets(
+        cfg, state, active_b)
+    grad_mismatch = torch.any(G_cmp != honest_G_cmp, dim=1)
+    s_h, true_s_h = s1.reshape(n, gs), true_s1.reshape(n, gs)
+    row_tol = 1e-4 * (1.0 + true_s_h.abs().amax(dim=1))
+    s_row_mismatch = (s_h - true_s_h).abs().amax(dim=1) > row_tol
+    u_n, honest_u_n = u.reshape(n, part1), h.u.reshape(n, part1)
+    agg_mismatch = torch.any(u_n != honest_u_n, dim=1)
+    caught = (grad_mismatch[target] | s_row_mismatch[target]
+              | agg_mismatch[target])
+    val_accuse = is_validator & ~byz & caught & valid_audit
+    if cfg.false_accuse and att:
+        val_accuse = val_accuse | (is_validator & byz & valid_audit)
+    accuse = accuse | (target_hot & val_accuse[:, None])
+    last_checked = torch.where(
+        audited, torch.full_like(state.last_checked, state.step),
+        state.last_checked)
+
+    accuse = accuse & active_b[:, None] & active_b[None, :]
+    sys_accuse = sys_accuse & active_b
+
+    (new_active, banned_now, reason, cheated,
+     accused_inc) = phase_accuse_ban(
+        cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban, G_cmp,
+        honest_G_cmp, u_n, honest_u_n, s_h, true_s_h, norms1.reshape(n, gs),
+        true_norm1.reshape(n, gs))
+    return (new_active, banned_now, reason, cheated, accused_inc, accuse,
+            sys_accuse, checksum_violations, check_averaging, last_checked,
+            agg_std, h.iters)
+
+
 def _elect(cfg: EngineConfig, key, active):
     """Next step's validators: m uniform draws without replacement over the
     active peers, never all of them (Alg. 1 L19)."""
@@ -438,7 +622,8 @@ def _elect(cfg: EngineConfig, key, active):
 # ---------------------------------------------------------------------------
 def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
                   honest_G):
-    """One BTARD-SGD aggregation round (the flat branch).
+    """One BTARD-SGD aggregation round: the hierarchical, the flat
+    verifiable or the non-verifiable branch.
 
     G / honest_G: (n, d) — honest_G is what a validator recomputing from
     the public seed obtains (the same tensor as G unless labels were
@@ -462,22 +647,46 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
 
     G, honest_G, delay_buf = phase_attack(cfg, state, G, honest_G, byz)
     seed, mprng_ban = phase_mprng(cfg, state, byz)
-    col_checked = torch.full_like(state.col_checked, state.step)
 
-    agg, z, s_tbl, norm_tbl, iters_used = phase_aggregation(
-        cfg, state, G, weights, seed)
+    # the sampled digest columns, a public fold of the step key; cell ==
+    # column == owner peer id, flat and hierarchical (hier cell (a, c) is
+    # peer a*gs + c), so one (n,) ledger serves both
+    sampling = spec.verifiable and cfg.audit_k is not None
+    samp_idx = samp_mask = None
+    if sampling:
+        samp_idx, samp_mask = hier_mod.sample_audit_cells(
+            _phase_key(state, 6), state.step, state.col_checked,
+            cfg.m_validators, cfg.audit_k, cfg.n)
+        col_checked = torch.where(
+            samp_mask, torch.full_like(state.col_checked, state.step),
+            state.col_checked)
+    else:
+        col_checked = torch.full_like(state.col_checked, state.step)
+
     if spec.verifiable:
         # compressed:* specs: peers commit to (and validators recompute)
         # the WIRE payloads, so every compare below runs over the wire
-        # projection of both sides
+        # projection of both sides; its partitions are the butterfly's,
+        # gs per group in the hierarchical one
         G_cmp, honest_G_cmp = G, honest_G
         if comp_mod.is_wrapped(spec):
             codec = comp_mod.codec_of(spec)
-            G_cmp = comp_mod.wire_grads(G, codec, cfg.n_parts)
+            n_wire = (hier_mod.group_shape(cfg.n, cfg.groups)[1]
+                      if cfg.hierarchical else cfg.n_parts)
+            G_cmp = comp_mod.wire_grads(G, codec, n_wire)
             honest_G_cmp = (G_cmp if honest_G is G else
-                            comp_mod.wire_grads(honest_G, codec, cfg.n_parts))
+                            comp_mod.wire_grads(honest_G, codec, n_wire))
+
+    if spec.verifiable and cfg.hierarchical:
+        (new_active, banned_now, reason, cheated, accused_inc, accuse,
+         sys_accuse, cs_viol, chk_avg, last_checked, agg,
+         iters_used) = phase_hier(cfg, state, byz, weights, seed, G, G_cmp,
+                                  honest_G_cmp, samp_mask, mprng_ban)
+    elif spec.verifiable:
+        agg, z, s_tbl, norm_tbl, iters_used = phase_aggregation(
+            cfg, state, G, weights, seed, samp_idx, G_cmp)
         agg, honest_agg, corrupt, s2, n2 = phase_aggregator_attack(
-            cfg, state, agg, G_cmp, z, byz, weights)
+            cfg, state, agg, G_cmp, z, byz, weights, samp_idx)
         if s_tbl is None:
             s_tbl, norm_tbl = s2, n2
         true_s, true_norm = s_tbl, norm_tbl
@@ -493,6 +702,8 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
             honest_G_cmp, agg, honest_agg, s_tbl, true_s, norm_tbl,
             true_norm)
     else:
+        agg, z, s_tbl, norm_tbl, iters_used = phase_aggregation(
+            cfg, state, G, weights, seed)
         # no tables -> no verification, no accusations, no bans (the MPRNG
         # abort rule included): the attack lands in the aggregate
         n = cfg.n
@@ -532,7 +743,9 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
         accuse_mat=accuse, sys_accuse=sys_accuse, cheated=cheated,
         checksum_violations=cs_viol, check_averaging=chk_avg,
         n_active=active.sum().to(torch.int32), validators=validator,
-        clip_iters_used=int(iters_used))
+        clip_iters_used=int(iters_used),
+        sampled_parts=(samp_mask if sampling else
+                       torch.ones((cfg.n,), dtype=torch.bool, device=device)))
     return new_state, out
 
 

@@ -19,11 +19,12 @@ On a CUDA tensor ``verified:mean`` with tables runs the fused mean+digest
 kernel (``kernels.ops.mean_digest_fused_op``); the other bases aggregate in
 torch (sorts) and then run the one-pass digest kernel
 (``kernels.ops.digest_tables_all_op``). ``compressed:*`` specs go to
-``core.compression``, which runs the inner spec over the wire values.
+``core.compression``, which runs the inner spec over the wire values. The
+sampled-digest audits' tables (``digest_tables_rows``) run the rows kernel
+(``kernels.ops.digest_tables_rows_op``) over the k sampled partitions.
 
 Not ported yet: ``owner_aggregate`` (the launch path's per-owner work,
-ROADMAP queue 1 item 14) and ``digest_tables_rows`` (sampled-digest audits,
-item 10, with TPU kernel #9).
+ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -86,10 +87,29 @@ def digest_tables(grads, agg, z):
     return ops.digest_tables_all_op(grads, grads.shape[0], agg, z)
 
 
-def digest_tables_rows(*args, **kwargs):
-    raise NotImplementedError(
-        "digest_tables_rows (sampled-digest audits, TPU kernel #9) is not "
-        "ported to repro_torch yet (ROADMAP queue 1, item 10)")
+def digest_tables_rows(spec, grads, agg, z, rows):
+    """The sampled-column tables of the sampled-digest audit mode
+    (``core.hierarchy``): (s, norm) of only the partitions ``rows`` (k,)
+    against ``agg`` (n_parts, part), in one pass of those k partitions.
+    butterfly_clip applies its tau clip weight, verified:* takes the plain
+    digest, compressed:* answers for its inner spec (``grads`` must already
+    be the wire values). Returns (s, norms), both (n, k); column j is
+    partition rows[j]."""
+    spec = agg_mod.resolve_spec(spec)
+    if spec.name.startswith("compressed:"):
+        from repro_torch.core import compression
+
+        return digest_tables_rows(compression.inner_spec(spec), grads, agg,
+                                  z, rows)
+    if spec.name == "butterfly_clip":
+        tau = float(spec.get("tau", 1.0))
+    elif is_wrapped(spec):
+        tau = 0.0
+    else:
+        raise ValueError(f"aggregator {spec.name!r} is not verifiable — it "
+                         "has no digest tables to sample")
+    return ops.digest_tables_rows_op(grads, grads.shape[0], agg, z, rows,
+                                     tau)
 
 
 def owner_aggregate(*args, **kwargs):

@@ -35,6 +35,7 @@ SIGNATURES = {
         "cc_sq_pass": _STACK + (_P, _LL, _I, _P, _P),
         "cc_update": _STACK + (_P, _P, _P, _LL, _I, _P, _P, _P, _F, _P),
         "cc_dot_pass": _STACK + (_P, _P, _LL, _I, _P, _P, _P),
+        "cc_rows_dot_pass": _STACK + (_P, _I, _P, _P, _LL, _I, _P, _P, _P),
         "cc_mean_pass": _STACK + (_P, _LL, _I, _P, _P),
         "cc_finish_weights": (_P, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P,
                               _F, _P),

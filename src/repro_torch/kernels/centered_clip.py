@@ -26,6 +26,7 @@ wrapper                           replaces
 ``digest_tables_batched``         ``digest_tables_batched_pallas``
 ``butterfly_clip_fused_dequant``  ``butterfly_clip_fused_dequant_pallas``
 ``mean_digest_fused_dequant``     ``mean_digest_fused_dequant_pallas``
+``digest_tables_rows``            ``digest_tables_rows_pallas``
 ================================  =========================================
 
 ``LAUNCHES`` counts kernel launches on the card: one per wrapper call, and
@@ -50,6 +51,7 @@ LAUNCHES = {
     "digest_tables_batched": 0,
     "butterfly_clip_fused_dequant": 0,
     "mean_digest_fused_dequant": 0,
+    "digest_tables_rows": 0,
 }
 # element type of a wire payload -> the kernels' dtype code (csrc/wire.cu)
 WIRE_DTYPES = {torch.int8: 1, torch.bfloat16: 2}
@@ -100,6 +102,12 @@ def butterfly_clip_plain(grads, n_parts, taus, weights=None, v0=None):
 
 def digest_tables_batched_plain(grads, n_parts, agg, z):
     return ref.digest_tables_ref(stacked(grads, n_parts), agg, z)
+
+
+def digest_tables_rows_plain(grads, n_parts, agg, z, rows, tau):
+    return ref.digest_tables_rows_ref(stacked(grads, n_parts), agg, z,
+                                      _rows(rows, n_parts, grads.device),
+                                      tau)
 
 
 def mean_digest_fused_plain(grads, n_parts, z, weights=None):
@@ -238,6 +246,10 @@ class _Stack:
         self._pass("dot_pass", _ptr(v), _ptr(z), self.cs, self.C,
                    _ptr(dot_part), _ptr(sq_part))
 
+    def rows_dot_pass(self, rows, v, z, dot_part, sq_part):
+        self._pass("rows_dot_pass", _ptr(rows), rows.shape[0], _ptr(v),
+                   _ptr(z), self.cs, self.C, _ptr(dot_part), _ptr(sq_part))
+
     def mean_pass(self, w, v):
         self._pass("mean_pass", _ptr(w), self.cs, self.C, _ptr(v))
 
@@ -250,15 +262,29 @@ class _Stack:
 
     def finish_tables(self, dot_part, tau, s, norms, sq_part=None,
                       sq_in=None):
+        # one CTA per row of the partials: P partitions, or k sampled ones
         _check(self.lib.cc_finish_tables(
-            _ptr(dot_part), _ptr(sq_part), _ptr(sq_in), self.P, self.C,
-            self.n, float(tau), _ptr(s), _ptr(norms), self.stream),
+            _ptr(dot_part), _ptr(sq_part), _ptr(sq_in), dot_part.shape[0],
+            self.C, self.n, float(tau), _ptr(s), _ptr(norms), self.stream),
             "finish tables")
 
     def finish_digests(self, dot_part, sq_part, s, norms):
         _check(self.lib.cc_finish_digests(
-            _ptr(dot_part), _ptr(sq_part), self.P, self.C, self.n, _ptr(s),
-            _ptr(norms), self.stream), "finish digests")
+            _ptr(dot_part), _ptr(sq_part), dot_part.shape[0], self.C,
+            self.n, _ptr(s), _ptr(norms), self.stream), "finish digests")
+
+
+def _rows(rows, n_parts, device):
+    """The sampled partition ids as a (k,) int32 tensor on ``device``,
+    checked: k >= 1 and every id in [0, n_parts)."""
+    rows = torch.as_tensor(rows).to(device=device, dtype=torch.int32)
+    if rows.dim() != 1 or rows.shape[0] == 0:
+        raise ValueError(f"rows must be a non-empty (k,) vector, got shape "
+                         f"{tuple(rows.shape)}")
+    if bool(((rows < 0) | (rows >= n_parts)).any()):
+        raise ValueError(f"rows must lie in [0, {n_parts}), got "
+                         f"{rows.tolist()}")
+    return rows.contiguous()
 
 
 def _on_cuda(grads) -> bool:
@@ -442,3 +468,31 @@ def mean_digest_fused_dequant(qs, scales, n_parts, z, weights=None):
     out = _mean_digest(_Stack(qs, n_parts, scales), z, weights)
     LAUNCHES["mean_digest_fused_dequant"] += 1
     return out
+
+
+def digest_tables_rows(grads, n_parts, agg, z, rows, tau):
+    """The digests of the sampled partitions ``rows`` only, in one pass
+    over those k partitions of the stack: tau > 0 applies the clip weight
+    min(1, tau/||x_i - v||) (tau = inf -> 1), as ``verify_tables_batched``;
+    tau <= 0 gives the plain digests, as ``digest_tables_batched``. agg, z:
+    (n_parts, part); rows: (k,) partition ids in [0, n_parts). The chunking
+    is that of the full n_parts-partition stack, so row j equals row
+    rows[j] of the full kernel's output bit for bit. Returns (s, norms),
+    both (k, n)."""
+    if not _on_cuda(grads):
+        return digest_tables_rows_plain(grads, n_parts, agg, z, rows, tau)
+    rows = _rows(rows, n_parts, grads.device)
+    k = _Stack(grads, n_parts)
+    agg = k.f32(agg, (k.P, k.part), "agg")
+    z = k.f32(z, (k.P, k.part), "z")
+    n_rows = rows.shape[0]
+    dot_part = k.empty(n_rows, k.C, k.n)
+    sq_part = k.empty(n_rows, k.C, k.n)
+    s, norms = k.empty(n_rows, k.n), k.empty(n_rows, k.n)
+    k.rows_dot_pass(rows, agg, z, dot_part, sq_part)
+    if float(tau) > 0:
+        k.finish_tables(dot_part, tau, s, norms, sq_part=sq_part)
+    else:
+        k.finish_digests(dot_part, sq_part, s, norms)
+    LAUNCHES["digest_tables_rows"] += 1
+    return s, norms

@@ -14,7 +14,11 @@
 //   * digest_tables_batched_pallas  (verified:* digests, no tau):
 //       dot pass with norms, finish digests;
 //   * mean_digest_fused_pallas      (verified:mean, 2 passes):
-//       mean pass, dot pass with norms, finish digests.
+//       mean pass, dot pass with norms, finish digests;
+//   * digest_tables_rows_pallas     (sampled-digest audits: the k sampled
+//       partitions only): the rows dot pass with norms, then finish
+//       tables (tau > 0, clip weight) or finish digests (tau = 0), over k
+//       rows instead of P partitions.
 // The wire-payload twins of the first and the last are wire.cu.
 
 #include "centered_clip.cuh"
@@ -69,26 +73,54 @@ extern "C" int cc_update(const float* x, long long ld, long long part,
   return cc::launch_status();
 }
 
-extern "C" int cc_dot_pass(const float* x, long long ld, long long part,
-                           long long d, int n, int P, const float* v,
-                           const float* z, long long cs, int C,
-                           float* dot_part, float* sq_part, void* stream) {
+namespace {
+
+// The dot pass over P partitions, or over the k partitions `rows` (device
+// memory, k int32 ids in [0, P), checked by the caller) when given.
+int dot_pass(const float* x, long long ld, long long part, long long d,
+             int n, int n_rows, const int* rows, const float* v,
+             const float* z, long long cs, int C, float* dot_part,
+             float* sq_part, void* stream) {
   const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
-  const dim3 grid(C, P);
+  const dim3 grid(C, n_rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(N)                                                       \
   do {                                                                  \
     if (sq_part != nullptr) {                                           \
       cc::dot_pass_kernel<N, 0, true><<<grid, kThreads, 0, st>>>(       \
-          s, v, z, cs, dot_part, sq_part);                              \
+          s, v, z, cs, dot_part, sq_part, rows);                        \
     } else {                                                            \
       cc::dot_pass_kernel<N, 0, false><<<grid, kThreads, 0, st>>>(      \
-          s, v, z, cs, dot_part, sq_part);                              \
+          s, v, z, cs, dot_part, sq_part, rows);                        \
     }                                                                   \
   } while (0)
   CC_DISPATCH_PEERS(n, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
+}
+
+}  // namespace
+
+extern "C" int cc_dot_pass(const float* x, long long ld, long long part,
+                           long long d, int n, int P, const float* v,
+                           const float* z, long long cs, int C,
+                           float* dot_part, float* sq_part, void* stream) {
+  return dot_pass(x, ld, part, d, n, P, nullptr, v, z, cs, C, dot_part,
+                  sq_part, stream);
+}
+
+// The sampled-digest pass: dot and square partials (k, C, n) of the k
+// partitions rows[0..k) only; cs and C are those of the full P-partition
+// stack, so row j sums what row rows[j] of cc_dot_pass sums, in its order.
+// P is taken with the other stack arguments of every pass and not needed.
+extern "C" int cc_rows_dot_pass(const float* x, long long ld, long long part,
+                                long long d, int n, int P, const int* rows,
+                                int k, const float* v, const float* z,
+                                long long cs, int C, float* dot_part,
+                                float* sq_part, void* stream) {
+  (void)P;
+  return dot_pass(x, ld, part, d, n, k, rows, v, z, cs, C, dot_part,
+                  sq_part, stream);
 }
 
 extern "C" int cc_mean_pass(const float* x, long long ld, long long part,

@@ -227,13 +227,19 @@ update_kernel(Stack<DT> s, float* __restrict__ v,
 }
 
 // Pass: per-peer partials of <x_i - v, z> and, with SQ, ||x_i - v||^2.
+// CTA (c, j) reads partition p = j, or p = rows[j] when `rows` is given
+// (the sampled-digest pass: only the k sampled partitions are read), and
+// writes row j of the partials. The body is the same either way, so row
+// j of a sampled pass has the bits of row rows[j] of the full pass.
 template <int MAXN, int DT, bool SQ>
 __global__ void __launch_bounds__(kThreads)
 dot_pass_kernel(Stack<DT> s, const float* __restrict__ v,
                 const float* __restrict__ z, long long cs,
-                float* __restrict__ dot_part, float* __restrict__ sq_part) {
+                float* __restrict__ dot_part, float* __restrict__ sq_part,
+                const int* __restrict__ rows) {
   const int c = blockIdx.x, C = gridDim.x;
-  const long long p = blockIdx.y;
+  const long long j = blockIdx.y;
+  const long long p = rows == nullptr ? j : static_cast<long long>(rows[j]);
   const long long k0 = c * cs;
   const long long k1 = min(s.part, k0 + cs);
   const float* vp = v + p * s.part;
@@ -255,8 +261,8 @@ dot_pass_kernel(Stack<DT> s, const float* __restrict__ v,
       }
     }
   }
-  block_sums<MAXN>(dacc, s.n, dot_part + (p * C + c) * s.n);
-  if (SQ) block_sums<MAXN>(sacc, s.n, sq_part + (p * C + c) * s.n);
+  block_sums<MAXN>(dacc, s.n, dot_part + (j * C + c) * s.n);
+  if (SQ) block_sums<MAXN>(sacc, s.n, sq_part + (j * C + c) * s.n);
 }
 
 // Pass: the weighted per-partition mean, v[p, k] = sum_i w_i x_i[k] /

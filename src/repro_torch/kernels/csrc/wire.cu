@@ -59,10 +59,10 @@ int dot_pass(const void* x, const float* scales, long long ld,
   do {                                                                  \
     if (sq_part != nullptr) {                                           \
       cc::dot_pass_kernel<N, DT, true><<<grid, kThreads, 0, st>>>(      \
-          s, v, z, cs, dot_part, sq_part);                              \
+          s, v, z, cs, dot_part, sq_part, nullptr);                     \
     } else {                                                            \
       cc::dot_pass_kernel<N, DT, false><<<grid, kThreads, 0, st>>>(     \
-          s, v, z, cs, dot_part, sq_part);                              \
+          s, v, z, cs, dot_part, sq_part, nullptr);                     \
     }                                                                   \
   } while (0)
   CC_DISPATCH_PEERS(n, LAUNCH);

@@ -86,3 +86,12 @@ def mean_digest_fused_dequant_op(qs, scales, n_parts, z, weights=None):
     agg, s, norms = _k.mean_digest_fused_dequant(qs, scales, n_parts, z,
                                                  weights)
     return agg, s.T, norms.T
+
+
+def digest_tables_rows_op(grads, n_parts, agg, z, rows, tau=0.0):
+    """The digests of the sampled partitions ``rows`` (k,) only, in one
+    pass of those k partitions: tau > 0 applies the clip weight, tau = 0
+    gives the plain verified:* digests -> (s (n, k), norms (n, k)), column
+    j = partition rows[j]."""
+    s, norms = _k.digest_tables_rows(grads, n_parts, agg, z, rows, tau)
+    return s.T, norms.T

@@ -17,6 +17,8 @@ kernel's dataflow:
   so a fixed budget and an adaptive run at tol = 0 agree bit for bit;
 * ``verify_tables_ref`` — the tau-clipped digest and norm in one pass;
 * ``digest_tables_ref`` — the verified:* digests, the same without tau;
+* ``digest_tables_rows_ref`` — either of the two over the sampled
+  partitions ``rows`` only;
 * ``mean_digest_fused_ref`` — the weighted mean, then its digests;
 * ``dequantize_ref`` and the ``*_dequant_ref`` twins — the same functions
   over int8/bf16 wire payloads, dequantized as ``f32(q) * scale``.
@@ -114,6 +116,19 @@ def digest_tables_ref(xs, v, z):
     diff = xs.to(torch.float32) - v.to(torch.float32).unsqueeze(-2)
     dots = (diff * z.to(torch.float32).unsqueeze(-2)).sum(-1)
     return dots, torch.linalg.vector_norm(diff, dim=-1)
+
+
+def digest_tables_rows_ref(xs, v, z, rows, tau=0.0):
+    """The digests of the sampled partitions ``rows`` only: for tau > 0
+    ``verify_tables_ref`` (the butterfly_clip clip weight, tau = inf ->
+    1), else ``digest_tables_ref`` (verified:*). xs (P, n, d); v, z
+    (P, d); rows (k,) partition ids. Returns (s, norms), both (k, n);
+    row j is partition rows[j]."""
+    rows = torch.as_tensor(rows, dtype=torch.int64, device=xs.device)
+    xs, v, z = xs[rows], v[rows], z[rows]
+    if float(tau) > 0:
+        return verify_tables_ref(xs, v, z, tau)
+    return digest_tables_ref(xs, v, z)
 
 
 def mean_digest_fused_ref(xs, z, weights=None):

@@ -1,8 +1,10 @@
-"""Kernels #1-#8 on the card: each CUDA kernel against its plain PyTorch
+"""Kernels #1-#9 on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (rtol = atol = 1e-5), bitwise repeatable,
 launch counted; the wire-payload twins #7 and #8 give the bits of #1 and
-#5 on the dequantized payloads. Marked ``cuda``; skips without a CUDA device. Run on the
-GPU machine with
+#5 on the dequantized payloads, and the sampled-digest kernel #9 gives, row
+for row, the bits of #2 (tau > 0) or #6 (tau = 0) at the sampled
+partitions. Marked ``cuda``; skips without a CUDA device. Run on the GPU
+machine with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -127,3 +129,40 @@ def test_wire_kernels_equal_f32_kernels_on_dequantized_bitwise(cuda, codec):
     a = kc.mean_digest_fused_dequant(q, sc, n, z, w)
     b = kc.mean_digest_fused(xd, n, z, w)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+ROWS = [[3, 1], [0], [2, 0, 3, 1], [1, 1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [0.0, 1.0, math.inf])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rows_digest_kernel_matches_plain_and_full_tables_on_card(cuda, shape,
+                                                                  tau):
+    n, d = shape
+    g, z, v, _ = _inputs(n, d, cuda)
+    g[1, :kc.part_len(d, n)] = 0.0  # an all-zero payload
+    if tau > 0:
+        fs, fn = kc.verify_tables_batched(g, n, v, z, tau)
+    else:
+        fs, fn = kc.digest_tables_batched(g, n, v, z)
+    for rows in ROWS:
+        rows = [r % n for r in rows]
+        _check(lambda: kc.digest_tables_rows(g, n, v, z, rows, tau),
+               lambda: kc.digest_tables_rows_plain(g, n, v, z, rows, tau),
+               "digest_tables_rows")
+        s, norms = kc.digest_tables_rows(g, n, v, z, rows, tau)
+        assert torch.equal(s, fs[rows]) and torch.equal(norms, fn[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [[4], [-1], [0, 9], [], [[0, 1]]])
+def test_rows_digest_kernel_rejects_bad_rows_on_card(cuda, rows):
+    n, d = SHAPES[0]
+    g, z, v, _ = _inputs(n, d, cuda)
+    before = kc.LAUNCHES["digest_tables_rows"]
+    with pytest.raises(ValueError, match="rows"):
+        kc.digest_tables_rows(g, n, v, z, torch.tensor(rows, device=cuda),
+                              1.0)
+    assert kc.LAUNCHES["digest_tables_rows"] == before
+

@@ -157,11 +157,19 @@ def test_scanned_steps_ban_steps_equal_jax(attack, spec):
 
 def test_engine_config_rejects_unported_branches():
     """The branches this port still lacks raise, naming their ROADMAP
-    item: elastic membership, hierarchical groups, sampled audits and the
-    full-vector baselines."""
-    for kw in (dict(n_events=2), dict(groups=2), dict(audit_k=1)):
-        with pytest.raises(NotImplementedError):
+    item: elastic membership and the full-vector baselines. Hierarchical
+    groups and sampled audits are ported and validated as in JAX: a bad
+    audit_k or a group count that does not split n into groups of >= 2
+    raises ValueError."""
+    with pytest.raises(NotImplementedError, match="item 11"):
+        teng.EngineConfig(n=4, d=8, n_events=2)
+    for kw in (dict(audit_k=0), dict(groups=3)):
+        with pytest.raises(ValueError):
+            jeng.EngineConfig(n=4, d=8, **kw)
+        with pytest.raises(ValueError):
             teng.EngineConfig(n=4, d=8, **kw)
+    for kw in (dict(groups=2), dict(audit_k=1), dict(groups=2, audit_k=1)):
+        assert teng.EngineConfig(n=4, d=8, **kw).audit_k == kw.get("audit_k")
     for name in ("krum", "geometric_median", "centered_clip"):
         with pytest.raises(NotImplementedError, match="item 4"):
             teng.EngineConfig(n=4, d=8, aggregator=name).agg_spec()

@@ -98,8 +98,8 @@ def test_registry_and_combinators_like_jax():
             tagg.AggregatorSpec.parse(name)
     with pytest.raises(NotImplementedError, match="item 14"):
         tverif.owner_aggregate("verified:mean", None, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tverif.digest_tables_rows("verified:mean", None, None, None, None)
+    with pytest.raises(ValueError, match="not verifiable"):
+        tverif.digest_tables_rows("mean", None, None, None, None)
 
 
 @pytest.mark.parametrize("text", ["mean", "coordinate_median",
