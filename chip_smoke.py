@@ -9,7 +9,9 @@ Phases, each printing its own line:
      slice's shapes (4 peers x 4 partitions of full-width ALBERT-large) and
      two ragged small shapes, tau in {1, inf}, with zero weights; the
      digest kernels and the int8/bf16 wire kernels also with an all-zero
-     payload (scale 0): within rtol = atol = 1e-5 per element and 1e-5 of
+     payload (scale 0), and the single-partition launch kernels #10 and
+     #11 at the launch owner's (4, d/4) stack: within rtol = atol = 1e-5
+     per element and 1e-5 of
      each output's largest value, bitwise equal over two runs, timed with
      CUDA events; the wire kernels give the bits of their float32 twins on
      the dequantized payloads; the sampled-digest kernel (#9, rows out of
@@ -32,7 +34,18 @@ Phases, each printing its own line:
      sampled verified:mean under the aggregator attack, 4 peers (#9 once a
      step), (h) hierarchical butterfly with 2 groups of 4 and sampling, 8
      peers (#1 once per group, #6 once for level 2, each step);
-  5. the launches of every kernel per path.
+  5. the distributed launch path, ``repro_torch.launch.train`` through
+     its normal entry point: full-width ALBERT-large over 4 peer ranks as
+     threads on the card (``--mesh 4x1``, global batch 8 x 64 tokens),
+     sign-flip attacker 3, tau 1, 4 steps, on (i) butterfly_clip (#10 once
+     per rank and step), (j) butterfly_clip warm-started with the adaptive
+     budget (#3 once per iteration, #11 once per rank and step), (k)
+     verified:mean (#5), (l) compressed:butterfly_clip with int8 payloads
+     (#7) and (m) butterfly_clip with 2 groups and audit_k 1 (#10 over
+     the (2, d/2) group stacks); each with its exact launch counts, a
+     finite loss at every step, the attacker banned within the 4 steps, no
+     honest ban, and the seconds by part of one more step;
+  6. the launches of every kernel per path.
 
 Before the last line it prints the card's name and power limit and a JSON
 object with each kernel's numbers; the last line is the device record.
@@ -74,6 +87,8 @@ KERNELS = {  # wrapper's launch-count name -> (TPU kernel it replaces, source)
     "butterfly_clip_fused_dequant": (f"{TPU_KERNELS}:512", f"{CSRC}/wire.cu"),
     "mean_digest_fused_dequant": (f"{TPU_KERNELS}:1120", f"{CSRC}/wire.cu"),
     "digest_tables_rows": (f"{TPU_KERNELS}:953", f"{CSRC}/centered_clip.cu"),
+    "centered_clip_fused": (f"{TPU_KERNELS}:381", f"{CSRC}/centered_clip.cu"),
+    "verify_tables": (f"{TPU_KERNELS}:776", f"{CSRC}/centered_clip.cu"),
 }
 # the wire codec each dequantizing kernel's path runs (its timed case)
 PATH_CODEC = {"butterfly_clip_fused_dequant": "int8",
@@ -296,6 +311,39 @@ def rows_cases(grads, n_parts, rows, gen):
             for tau in (0.0, 1.0, math.inf)]
 
 
+def launch_cases(grads, n_parts, tau, weights, gen):
+    """Kernels #10 and #11 at one launch owner's stack: the (n, part)
+    contiguous receive buffer of partition 0, as the all_to_all leaves it.
+    The same tuples as ``kernel_cases``; the bytes are those of #1 and #2
+    at one partition."""
+    from repro_torch.kernels import centered_clip as kc
+
+    n, d = grads.shape
+    part = kc.part_len(d, n_parts)
+    xs = grads[:, :part].contiguous()
+    dev = grads.device
+    z = torch.randn((part,), generator=gen, device=dev)
+    z = z / torch.linalg.vector_norm(z)
+    scale = 0.1 / math.sqrt(part)
+    agg = scale * torch.randn((part,), generator=gen, device=dev)
+    v0 = scale * torch.randn((part,), generator=gen, device=dev)
+    taus = [tau] * CLIP_ITERS
+    nd, it = n * part, CLIP_ITERS
+    tbl = 2 * n * 4
+    return [
+        ("centered_clip_fused",
+         lambda: kc.centered_clip_fused(xs, taus, z, None, weights, v0),
+         lambda: kc.centered_clip_fused_plain(xs, taus, z, None, weights,
+                                              v0),
+         (nd + 3 * part) * 4 + tbl, nd * (6 * it + 6),
+         ((it + 2) * nd + (2 + 1 + 2 * it + 2) * part) * 4 + tbl),
+        ("verify_tables",
+         lambda: kc.verify_tables(xs, agg, z, tau),
+         lambda: kc.verify_tables_plain(xs, agg, z, tau),
+         (nd + 2 * part) * 4 + tbl, nd * 6, (nd + 2 * part) * 4 + tbl),
+    ]
+
+
 def stack(n, d, gen, dev):
     """Peer gradients with partition norms near 1 and one outlier peer."""
     part = -(-d // n)
@@ -362,8 +410,9 @@ def phase_kernels(dev):
                 full = d == d_full and tau == 1.0 and weights is None
                 label = (f"n={n} d={d} tau={tau} "
                          f"zero_weights={weights is not None}")
-                for name, kern, plain, nbytes, ops, moved in kernel_cases(
-                        grads, n_parts, tau, weights, gen):
+                for name, kern, plain, nbytes, ops, moved in (
+                        kernel_cases(grads, n_parts, tau, weights, gen)
+                        + launch_cases(grads, n_parts, tau, weights, gen)):
                     hold(stats, name, f"{name} {label}", kern, plain,
                          nbytes, ops, moved, full)
                 for (name, codec, kern, plain, nbytes, ops, moved,
@@ -395,7 +444,7 @@ def phase_kernels(dev):
             for k in ("max_abs_err", "max_rel_err"):
                 main[k] = max(main[k], st[k])
             main["by_codec"][codec] = {k: st[k] for k in keep}
-    print("phase 2: kernels #1-#9 agree with their plain versions within "
+    print("phase 2: kernels #1-#11 agree with their plain versions within "
           f"rtol=atol={RTOL:g} (max relative error "
           f"{max(st['max_rel_err'] for st in stats.values()):.3e}), repeat "
           "bitwise, the wire kernels equal their float32 twins on the "
@@ -591,6 +640,44 @@ def engine_breakdown(cfg, state, byz_mask, params, grads_fn):
             "z_draws_in_protocol": z_s}
 
 
+def run_launch_path(label, argv, launches):
+    """Drive ``repro_torch.launch.train`` through its normal entry point
+    (``build_parser`` + ``run``): 4 peer ranks as threads on the card. The
+    launch counts are set to 0 just before and read when every rank has
+    finished its steps (before the one more step of the breakdown).
+    ``launches(record)``: the exact count of every kernel that may launch
+    (all others 0). Checks: a finite loss at every step, the attacker
+    banned within the steps, no honest peer banned. Returns the counts."""
+    from repro_torch.kernels import centered_clip as kc
+    from repro_torch.launch import train as lt
+
+    args = lt.build_parser().parse_args(argv)
+    counts = {}
+    kc.reset_launch_counts()
+    rec = lt.run(args, breakdown=True,
+                 on_steps_done=lambda: counts.update(kc.LAUNCHES))
+    byz = {int(b) for b in args.byzantine.split(",")}
+    losses, bans = rec["losses"], rec["ban_steps"]
+    check(len(losses) == args.steps and all(map(math.isfinite, losses)),
+          f"{label}: losses {losses}")
+    check(set(bans) == byz and all(t < args.steps for t in bans.values()),
+          f"{label}: attacker not banned within {args.steps} steps: {bans}")
+    want = {name: 0 for name in counts}
+    want.update(launches(rec))
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    print(f"{label}: median step {statistics.median(rec['seconds']):.3f} s "
+          f"over {len(rec['seconds'])} steps "
+          f"{[round(x, 4) for x in rec['seconds']]}; losses "
+          f"{[round(x, 4) for x in losses]}; bans {bans}; clip iters "
+          f"{rec['clip_iters']}; launches {counts}", flush=True)
+    parts = dict(rec["parts"], whole_step=sum(rec["parts"].values()))
+    print(f"{label}: one more step, seconds by part "
+          + json.dumps({k: round(v, 4) for k, v in parts.items()}),
+          flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -671,7 +758,41 @@ def main():
             f" audit_k=1 groups={groups}", n, aggregator, attack, per_step,
             groups=groups)
 
-    print("phase 5: kernels launched per path: " + json.dumps(paths),
+    # the distributed launch path: 4 peer ranks on the card, 4 steps;
+    # (label, extra flags, kernel launches given the run's record)
+    launch = ["--arch", "albert-large", "--mesh", "4x1", "--steps", "4",
+              "--attack", "sign_flip", "--byzantine", "3", "--tau", "1",
+              "--clip-iters", str(CLIP_ITERS)]
+    per_owner_step = lambda name: (  # noqa: E731
+        lambda rec: {name: sum(len(r) for r in rec["clip_iters"])})
+    launch_paths = [
+        ("launch_fixed", ["--aggregator", "butterfly_clip"],
+         per_owner_step("centered_clip_fused")),
+        ("launch_adaptive",
+         ["--aggregator", "butterfly_clip:warm_start=true,adaptive_tol=1e-4",
+          "--clip-iters", "20"],
+         lambda rec: {"adaptive_clip_step": sum(map(sum, rec["clip_iters"])),
+                      "verify_tables": sum(map(len, rec["clip_iters"]))}),
+        ("launch_verified_mean", ["--aggregator", "verified:mean"],
+         per_owner_step("mean_digest_fused")),
+        ("launch_compressed", ["--aggregator", "compressed:butterfly_clip"],
+         per_owner_step("butterfly_clip_fused_dequant")),
+        ("launch_groups_sampled", ["--aggregator", "butterfly_clip",
+                                   "--groups", "2", "--audit-k", "1"],
+         per_owner_step("centered_clip_fused")),
+    ]
+    for tag, (label, extra, launches) in zip("ijklm", launch_paths):
+        paths[label] = run_launch_path(
+            f"phase 5 ({tag}) {label}: {' '.join(extra)}, 4 thread ranks",
+            launch + extra, launches)
+    for label in ("launch_fixed", "launch_verified_mean",
+                  "launch_compressed", "launch_groups_sampled"):
+        check(max(paths[label].values()) == 16,
+              f"{label}: expected one launch per rank and step (16)")
+    check(paths["launch_adaptive"]["verify_tables"] == 16,
+          "launch_adaptive: expected 16 table passes")
+
+    print("phase 6: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
             "adaptive", "adaptive_clip_step": "adaptive",
@@ -680,7 +801,9 @@ def main():
             "digest_tables_batched": "verified_trimmed_mean",
             "butterfly_clip_fused_dequant": "compressed_butterfly_clip",
             "mean_digest_fused_dequant": "compressed_verified_mean_bf16",
-            "digest_tables_rows": "sampled_flagship"}
+            "digest_tables_rows": "sampled_flagship",
+            "centered_clip_fused": "launch_fixed",
+            "verify_tables": "launch_adaptive"}
     rows = []
     for name, (replaces, source) in KERNELS.items():
         st = stats[name]

@@ -15,6 +15,7 @@ one.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng
@@ -106,6 +107,38 @@ def verification_tables(grads, agg, z, tau):
     with the tau-clipped residual, norm[i, j] = ||x_i^j - v_j||.
     Returns (s, norms), both (n, n_parts)."""
     return ops.verify_tables_all_op(grads, grads.shape[0], agg, z, tau)
+
+
+def checksum_violations(s, weights, tol):
+    """Verification 2 checksum: |sum_i s_i^j| per partition (Alg. 1 L14).
+    s (n, n_parts). Returns (sums (n_parts,), violated (n_parts,) bool)."""
+    w = s if weights is None else s * weights[:, None]
+    sums = w.sum(0)
+    return sums, sums.abs() > tol
+
+
+def delta_max_votes(norms, weights, delta_max):
+    """Verification 3: the number of active peers whose partition residual
+    exceeds Delta_max; a majority vote triggers CHECKAVERAGING(j).
+    Returns (votes (n_parts,), majority (n_parts,) bool)."""
+    active = (norms.shape[0] if weights is None
+              else torch.clamp(weights.sum(), min=1.0))
+    check = norms > delta_max  # (n, n_parts)
+    if weights is not None:
+        check = check & (weights[:, None] > 0)
+    votes = check.sum(0)
+    return votes, votes > active / 2.0
+
+
+def checksum_offender_peers(checksums, rel: float = 1e-2):
+    """The aggregating peers of violated Verification 2 checksums: partition
+    j is aggregated by peer j (Alg. 2), so |checksum_j| above ``rel`` times
+    (1 + the mean magnitude) implicates peer j. Host-side (numpy in, numpy
+    out): the launcher's ban policy. Returns the offending peer indices."""
+    if isinstance(checksums, torch.Tensor):
+        checksums = checksums.detach().cpu().numpy()
+    cs = np.abs(np.asarray(checksums, np.float32))
+    return np.nonzero(cs > rel * (1.0 + cs.mean()))[0]
 
 
 def checksum_tolerance(agg, grads, rel=1e-3):

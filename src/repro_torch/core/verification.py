@@ -22,9 +22,8 @@ torch (sorts) and then run the one-pass digest kernel
 ``core.compression``, which runs the inner spec over the wire values. The
 sampled-digest audits' tables (``digest_tables_rows``) run the rows kernel
 (``kernels.ops.digest_tables_rows_op``) over the k sampled partitions.
-
-Not ported yet: ``owner_aggregate`` (the launch path's per-owner work,
-ROADMAP queue 1 item 14).
+On the launch path each partition owner aggregates its own received stack
+(:func:`owner_aggregate`): the same kernels at one partition.
 """
 from __future__ import annotations
 
@@ -112,10 +111,43 @@ def digest_tables_rows(spec, grads, agg, z, rows):
                                      tau)
 
 
-def owner_aggregate(*args, **kwargs):
-    raise NotImplementedError(
-        "owner_aggregate (the launch path's per-owner aggregation) is not "
-        "ported to repro_torch yet (ROADMAP queue 1, item 14)")
+def owner_aggregate(spec, stack, z, weights=None, key=None, wire=None):
+    """ONE partition owner's work on the launch path: aggregate the
+    all_to_all'd (n, part) stack with the BASE fn and digest against the
+    result, the single-partition sibling of :func:`spec_aggregate`.
+
+    ``verified:mean`` runs the fused mean+digest kernel (#5) at one
+    partition, or with ``wire = (qs (n, part) int8/bf16, scales (n,) f32)``
+    (the received compressed payloads) its dequantizing twin (#8); the
+    other bases aggregate in torch and run the digest kernel (#6) at one
+    partition. For compressed:* specs ``stack`` must already be the
+    dequantized wire values. ``key`` is handed to the base fn (the ported
+    bases draw nothing). Returns (agg (part,), s (n,), norms (n,), iters).
+    """
+    spec = agg_mod.resolve_spec(spec)
+    if spec.name.startswith("compressed:"):
+        from repro_torch.core import compression
+
+        return owner_aggregate(compression.inner_spec(spec), stack, z,
+                               weights=weights, key=key, wire=wire)
+    base = base_spec(spec)
+    n, part = stack.shape
+    stack = stack.float()
+    z = z.float()
+    if base.name == "mean":
+        if wire is not None:
+            qs, scales = wire
+            agg, s, norms = ops.mean_digest_fused_dequant_op(
+                qs, scales[None], 1, z[None], weights)
+        else:
+            agg, s, norms = ops.mean_digest_fused_op(stack, 1, z[None],
+                                                     weights)
+        return agg[0], s[:, 0], norms[:, 0], 1
+    agg, info = base.build(n, part)(
+        stack, weights if base.weighted else None, None, key)
+    agg = agg.float()
+    s, norms = ops.digest_tables_all_op(stack, 1, agg[None], z[None])
+    return agg, s[:, 0], norms[:, 0], info.iters
 
 
 def spec_tables(spec, grads, agg, z):

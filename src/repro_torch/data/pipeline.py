@@ -1,12 +1,12 @@
 """Deterministic public-seed token pipeline.
 
-Counterpart of ``repro.data.pipeline``'s ``peer_key`` and
-``TokenPipeline.device_batch``. BTARD needs PUBLIC data: every peer's
-minibatch for step t is a pure function of a public seed, so a validator
-recomputes anyone's gradient bit for bit. The tokens come from the port's
-threefry generator (``core.prng``) along the JAX package's key chain, so
-the integer tokens equal the JAX pipeline's for the same
-``(global_seed, step, peer)``.
+Counterpart of ``repro.data.pipeline``'s ``peer_key``,
+``TokenPipeline.device_batch`` and ``TokenPipeline.batch``. BTARD needs
+PUBLIC data: every peer's minibatch for step t is a pure function of a
+public seed, so a validator recomputes anyone's gradient bit for bit. The
+tokens come from the port's threefry generator (``core.prng``) along the
+JAX package's key chain, so the integer tokens equal the JAX pipeline's
+for the same ``(global_seed, step, peer)``.
 """
 from __future__ import annotations
 
@@ -58,3 +58,9 @@ class TokenPipeline:
         b = batch_size or self.B
         key = peer_key(self.global_seed, step, peer, device=self.device)
         return {"tokens": self._gen(key, b).to(torch.int32)}
+
+    def batch(self, step: int, peer: int = 0, *, batch_size=None):
+        """Host-loop entry point: the same bits as ``device_batch`` (it IS
+        ``device_batch``, with concrete step and peer), generated on the
+        pipeline's device."""
+        return self.device_batch(step, peer, batch_size=batch_size)

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -55,6 +56,10 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# the launch path's peer ranks are threads of one process: the first
+# launches of several ranks must not build (into the same temporary file)
+# or load a library twice
+_LOAD_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -106,12 +111,18 @@ def compile_all(names=tuple(SIGNATURES), verbose: bool = False) -> dict:
 
 
 def load(name: str = "centered_clip") -> ctypes.CDLL:
-    """The loaded library, built first if needed, with argtypes declared."""
+    """The loaded library, built first if needed, with argtypes declared.
+    Safe to call from several threads at once: one builds, the others
+    wait for it."""
     lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(compile_all((name,))[name]))
-        for fn, args in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(compile_all((name,))[name]))
+            for fn, args in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
     return lib

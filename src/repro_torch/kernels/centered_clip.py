@@ -27,14 +27,24 @@ wrapper                           replaces
 ``butterfly_clip_fused_dequant``  ``butterfly_clip_fused_dequant_pallas``
 ``mean_digest_fused_dequant``     ``mean_digest_fused_dequant_pallas``
 ``digest_tables_rows``            ``digest_tables_rows_pallas``
+``centered_clip_fused``           ``centered_clip_fused_pallas``
+``verify_tables``                 ``verify_tables_pallas``
 ================================  =========================================
 
+The last two are the single-partition kernels of the launch path: one
+owner's received ``(n, part)`` stack. They run the passes of the batched
+kernels at ``n_parts = 1`` (the stack is then the matrix itself), under
+their own wrappers, launch counts and plain versions.
+
 ``LAUNCHES`` counts kernel launches on the card: one per wrapper call, and
-for the adaptive loop one per iteration it runs (its step kernel).
+for the adaptive loop one per iteration it runs (its step kernel). The
+launch path runs its peer ranks as threads of one process, so every count
+goes through ``_count``, which holds a lock.
 """
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
@@ -52,7 +62,10 @@ LAUNCHES = {
     "butterfly_clip_fused_dequant": 0,
     "mean_digest_fused_dequant": 0,
     "digest_tables_rows": 0,
+    "centered_clip_fused": 0,
+    "verify_tables": 0,
 }
+_COUNT_LOCK = threading.Lock()
 # element type of a wire payload -> the kernels' dtype code (csrc/wire.cu)
 WIRE_DTYPES = {torch.int8: 1, torch.bfloat16: 2}
 MAX_PEERS = 32
@@ -63,8 +76,15 @@ THREADS = 256
 
 
 def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str):
+    """One more launch of kernel ``name`` (safe under concurrent ranks)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def part_len(d: int, n_parts: int) -> int:
@@ -124,6 +144,19 @@ def butterfly_clip_fused_dequant_plain(qs, scales, n_parts, taus, z,
 def mean_digest_fused_dequant_plain(qs, scales, n_parts, z, weights=None):
     return ref.mean_digest_fused_dequant_ref(stacked(qs, n_parts), scales, z,
                                              weights)
+
+
+def centered_clip_fused_plain(xs, taus, z, tau_v=None, weights=None,
+                              v0=None):
+    v, s, norms = ref.centered_clip_fused_ref(
+        xs[None], taus, z[None], tau_v=tau_v, weights=weights,
+        v0=None if v0 is None else v0[None])
+    return v[0], s[0], norms[0]
+
+
+def verify_tables_plain(xs, v, z, tau):
+    s, norms = ref.verify_tables_ref(xs[None], v[None], z[None], tau)
+    return s[0], norms[0]
 
 
 def butterfly_clip_adaptive_plain(grads, n_parts, tau, tol, max_iters,
@@ -329,8 +362,53 @@ def butterfly_clip_fused(grads, n_parts, taus, z, tau_v=None, weights=None,
         return butterfly_clip_fused_plain(grads, n_parts, taus, z, tau_v,
                                           weights, v0)
     out = _fused_clip(_Stack(grads, n_parts), taus, z, tau_v, weights, v0)
-    LAUNCHES["butterfly_clip_fused"] += 1
+    _count("butterfly_clip_fused")
     return out
+
+
+def _one_partition(xs, v=None):
+    """The (n, part) float32 stack of one owner and an optional (part,)
+    vector, checked: the single-partition kernels take nothing else."""
+    if xs.dim() != 2 or xs.dtype != torch.float32:
+        raise ValueError(f"xs must be an (n, part) float32 stack, got "
+                         f"{tuple(xs.shape)} {xs.dtype}")
+    if v is not None and tuple(v.shape) != (xs.shape[1],):
+        raise ValueError(f"expected a ({xs.shape[1]},) vector, got "
+                         f"{tuple(v.shape)}")
+    return _Stack(xs, 1)
+
+
+def centered_clip_fused(xs, taus, z, tau_v=None, weights=None, v0=None):
+    """One owner's CenteredClip for ``len(taus)`` iterations with
+    incremental next-iteration norms, then the Alg. 6 tables
+    s_i = min(1, tau_v/||x_i - v||) <z, x_i - v>, ||x_i - v||, in
+    len(taus) + 2 passes of the stack. xs (n, part) f32; z, v0 (part,).
+    Returns (agg (part,), s (n,), norms (n,))."""
+    taus = [float(t) for t in taus]
+    tau_v = taus[-1] if tau_v is None else float(tau_v)
+    if not _on_cuda(xs):
+        return centered_clip_fused_plain(xs, taus, z, tau_v, weights, v0)
+    k = _one_partition(xs, z)
+    v, s, norms = _fused_clip(k, taus, z[None], tau_v, weights,
+                              None if v0 is None else v0[None])
+    _count("centered_clip_fused")
+    return v[0], s[0], norms[0]
+
+
+def verify_tables(xs, v, z, tau):
+    """One owner's Alg. 6 tables against a given aggregate, in one pass:
+    s_i = min(1, tau/||x_i - v||) <z, x_i - v>, norm_i = ||x_i - v||.
+    xs (n, part) f32; v, z (part,). Returns (s (n,), norms (n,))."""
+    if not _on_cuda(xs):
+        return verify_tables_plain(xs, v, z, tau)
+    k = _one_partition(xs, v)
+    v, z = k.f32(v[None], (1, k.part), "v"), k.f32(z[None], (1, k.part), "z")
+    dot_part, sq_part = k.empty(1, k.C, k.n), k.empty(1, k.C, k.n)
+    s, norms = k.empty(1, k.n), k.empty(1, k.n)
+    k.dot_pass(v, z, dot_part, sq_part=sq_part)
+    k.finish_tables(dot_part, tau, s, norms, sq_part=sq_part)
+    _count("verify_tables")
+    return s[0], norms[0]
 
 
 def butterfly_clip_fused_dequant(qs, scales, n_parts, taus, z, tau_v=None,
@@ -347,7 +425,7 @@ def butterfly_clip_fused_dequant(qs, scales, n_parts, taus, z, tau_v=None,
                                                   z, tau_v, weights, v0)
     out = _fused_clip(_Stack(qs, n_parts, scales), taus, z, tau_v, weights,
                       v0)
-    LAUNCHES["butterfly_clip_fused_dequant"] += 1
+    _count("butterfly_clip_fused_dequant")
     return out
 
 
@@ -363,7 +441,7 @@ def verify_tables_batched(grads, n_parts, agg, z, tau):
     s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
     k.dot_pass(agg, z, dot_part, sq_part=sq_part)
     k.finish_tables(dot_part, tau, s, norms, sq_part=sq_part)
-    LAUNCHES["verify_tables_batched"] += 1
+    _count("verify_tables_batched")
     return s, norms
 
 
@@ -393,7 +471,7 @@ def butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
                  tol2=tol2)
         k.finish_weights(sq_part, w, tau, sq, cw, d2_part=d2_part, d2=d2,
                          iters=iters, tol2=tol2)
-        LAUNCHES["adaptive_clip_step"] += 1
+        _count("adaptive_clip_step")
     return v, iters
 
 
@@ -411,7 +489,7 @@ def butterfly_clip(grads, n_parts, taus, weights=None, v0=None):
         k.sq_pass(v, sq_part)
         k.finish_weights(sq_part, w, tau, sq, cw, wsum if it == 0 else None)
         k.update(v, cw, wsum)
-    LAUNCHES["butterfly_clip"] += 1
+    _count("butterfly_clip")
     return v
 
 
@@ -428,7 +506,7 @@ def digest_tables_batched(grads, n_parts, agg, z):
     s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
     k.dot_pass(agg, z, dot_part, sq_part=sq_part)
     k.finish_digests(dot_part, sq_part, s, norms)
-    LAUNCHES["digest_tables_batched"] += 1
+    _count("digest_tables_batched")
     return s, norms
 
 
@@ -454,7 +532,7 @@ def mean_digest_fused(grads, n_parts, z, weights=None):
     if not _on_cuda(grads):
         return mean_digest_fused_plain(grads, n_parts, z, weights)
     out = _mean_digest(_Stack(grads, n_parts), z, weights)
-    LAUNCHES["mean_digest_fused"] += 1
+    _count("mean_digest_fused")
     return out
 
 
@@ -466,7 +544,7 @@ def mean_digest_fused_dequant(qs, scales, n_parts, z, weights=None):
         return mean_digest_fused_dequant_plain(qs, scales, n_parts, z,
                                                weights)
     out = _mean_digest(_Stack(qs, n_parts, scales), z, weights)
-    LAUNCHES["mean_digest_fused_dequant"] += 1
+    _count("mean_digest_fused_dequant")
     return out
 
 
@@ -494,5 +572,5 @@ def digest_tables_rows(grads, n_parts, agg, z, rows, tau):
         k.finish_tables(dot_part, tau, s, norms, sq_part=sq_part)
     else:
         k.finish_digests(dot_part, sq_part, s, norms)
-    LAUNCHES["digest_tables_rows"] += 1
+    _count("digest_tables_rows")
     return s, norms

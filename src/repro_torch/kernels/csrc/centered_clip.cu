@@ -18,8 +18,21 @@
 //   * digest_tables_rows_pallas     (sampled-digest audits: the k sampled
 //       partitions only): the rows dot pass with norms, then finish
 //       tables (tau > 0, clip weight) or finish digests (tau = 0), over k
-//       rows instead of P partitions.
-// The wire-payload twins of the first and the last are wire.cu.
+//       rows instead of P partitions;
+//   * centered_clip_fused_pallas    (one owner's fixed budget + tables, the
+//       launch path): the passes of butterfly_clip_fused_pallas over one
+//       (n, part) partition, P = 1;
+//   * verify_tables_pallas          (one owner's tables against a given
+//       aggregate, the launch path's adaptive epilogue): the passes of
+//       verify_tables_batched_pallas at P = 1.
+// The two single-partition kernels read the owner's received stack, a
+// contiguous (n, part) matrix, so the partition count is 1 and every pass
+// spreads its CTAs over chunks of that one partition. Like the batched
+// passes they are bound by bytes (a few float32 operations per element
+// read): the design reads the stack once per pass, n_iters + 2 passes for
+// the fused clip and one for the tables.
+// The wire-payload twins of butterfly_clip_fused_pallas and
+// mean_digest_fused_pallas are wire.cu.
 
 #include "centered_clip.cuh"
 

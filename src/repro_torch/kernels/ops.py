@@ -13,6 +13,21 @@ from __future__ import annotations
 from repro_torch.kernels import centered_clip as _k
 
 
+def centered_clip_fused_op(xs, tau, z, weights=None, tau_v=None, v0=None, *,
+                           n_iters: int = 20):
+    """One owner's fused CenteredClip + Alg. 6 tables: xs (n, part) f32,
+    z (part,) -> (agg (part,), s (n,), norms (n,)). v0: optional (part,)
+    warm start."""
+    return _k.centered_clip_fused(xs, [tau] * n_iters, z, tau_v=tau_v,
+                                  weights=weights, v0=v0)
+
+
+def verify_tables_op(xs, v, z, tau):
+    """One owner's tables against a given aggregate (one pass): xs (n, part),
+    v, z (part,) -> (s (n,), norms (n,))."""
+    return _k.verify_tables(xs, v, z, tau)
+
+
 def butterfly_clip_op(grads, n_parts, tau, weights=None, v0=None, *,
                       n_iters: int = 20):
     """Two-phase all-partition CenteredClip -> agg (n_parts, part)."""

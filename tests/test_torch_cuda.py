@@ -1,9 +1,11 @@
-"""Kernels #1-#9 on the card: each CUDA kernel against its plain PyTorch
+"""Kernels #1-#11 on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (rtol = atol = 1e-5), bitwise repeatable,
 launch counted; the wire-payload twins #7 and #8 give the bits of #1 and
 #5 on the dequantized payloads, and the sampled-digest kernel #9 gives, row
 for row, the bits of #2 (tau > 0) or #6 (tau = 0) at the sampled
-partitions. Marked ``cuda``; skips without a CUDA device. Run on the GPU
+partitions; the single-partition kernels #10 and #11 (one launch owner's
+stack) give the bits of #1 and #2 at one partition. Marked ``cuda``; skips
+without a CUDA device. Run on the GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -166,3 +168,27 @@ def test_rows_digest_kernel_rejects_bad_rows_on_card(cuda, rows):
                               1.0)
     assert kc.LAUNCHES["digest_tables_rows"] == before
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [1.0, math.inf])
+@pytest.mark.parametrize("n, part", [(1, 517), (3, 1001), (4, 4096 + 5),
+                                     (8, 3000)])
+def test_single_partition_kernels_match_plain_versions_on_card(cuda, n, part,
+                                                               tau):
+    m = max(n, 2)  # _inputs zeroes the weight of peer m - 2
+    g, z, v, w = _inputs(m, m * part, cuda)
+    xs, z, v, w = g[:n, :part].contiguous(), z[0], v[0], w[:n].contiguous()
+    taus = [tau] * 5
+    _check(lambda: kc.centered_clip_fused(xs, taus, z, None, w, v),
+           lambda: kc.centered_clip_fused_plain(xs, taus, z, None, w, v),
+           "centered_clip_fused")
+    _check(lambda: kc.verify_tables(xs, v, z, tau),
+           lambda: kc.verify_tables_plain(xs, v, z, tau), "verify_tables")
+    # the passes of #1 and #2 at one partition: the same bits
+    a = kc.centered_clip_fused(xs, taus, z, None, w, v)
+    b = kc.butterfly_clip_fused(xs, 1, taus, z[None], None, w, v[None])
+    assert all(torch.equal(x, y[0]) for x, y in zip(a, b))
+    a = kc.verify_tables(xs, v, z, tau)
+    b = kc.verify_tables_batched(xs, 1, v[None], z[None], tau)
+    assert all(torch.equal(x, y[0]) for x, y in zip(a, b))

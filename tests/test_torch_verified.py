@@ -96,8 +96,12 @@ def test_registry_and_combinators_like_jax():
     for name in ("krum", "geometric_median", "centered_clip"):
         with pytest.raises(NotImplementedError, match="item 4"):
             tagg.AggregatorSpec.parse(name)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tverif.owner_aggregate("verified:mean", None, None)
+    # owner_aggregate, once a stub naming item 14, is the launch owner's
+    # one-partition aggregation now (tests/test_torch_launch_stage.py)
+    stack = torch.arange(12.0).reshape(3, 4)
+    agg, _, _, _ = tverif.owner_aggregate("verified:mean", stack,
+                                          torch.ones(4) / 2)
+    torch.testing.assert_close(agg, stack.mean(0))
     with pytest.raises(ValueError, match="not verifiable"):
         tverif.digest_tables_rows("mean", None, None, None, None)
 
