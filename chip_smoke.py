@@ -6,8 +6,9 @@ Phases, each printing its own line:
   1. the card (name and power limit from nvidia-smi) and the build of the
      CUDA kernels from ``src/repro_torch/kernels/csrc``, with its time;
   2. every kernel against its plain PyTorch version on the card, at the
-     slice's shapes (4 peers x 4 partitions of full-width ALBERT-large) and
-     two ragged small shapes, tau in {1, inf}, with zero weights; the
+     slice's shapes (4 peers x 4 partitions of full-width ALBERT-large), two
+     ragged small shapes and two past 32 peers (33 and 64 peers, d = 2^20
+     + 3: the peer-tiled passes), tau in {1, inf}, with zero weights; the
      digest kernels and the int8/bf16 wire kernels also with an all-zero
      payload (scale 0), and the single-partition launch kernels #10 and
      #11 at the launch owner's (4, d/4) stack: within rtol = atol = 1e-5
@@ -17,7 +18,8 @@ Phases, each printing its own line:
      the dequantized payloads; the sampled-digest kernel (#9, rows out of
      order, tau in {0, 1, inf}, an all-zero payload among the sampled
      partitions) gives the bits of #2 (tau > 0) or #6 (tau = 0) at the
-     sampled rows;
+     sampled rows; #12 over each whole (n, d) stack with a warm start,
+     float32 (timed at the full-width (4, d)) and bfloat16;
   3. the main path: ``repro_torch.launch.train_byzantine`` on full-width
      ALBERT-large (bf16 storage, d = 78,223,360), 4 peers, one sign-flip
      attacker, 2 validators, 5 clip iterations, seq 128, batch 4, 6 steps;
@@ -45,7 +47,21 @@ Phases, each printing its own line:
      the (2, d/2) group stacks); each with its exact launch counts, a
      finite loss at every step, the attacker banned within the 4 steps, no
      honest ban, and the seconds by part of one more step;
-  6. the launches of every kernel per path.
+  6. the §4.1 full-vector baselines at full width through
+     ``train_byzantine --defense centered_clip|krum|geometric_median``, 3
+     steps each: finite gradient norms, no ban, no kernel launched (a
+     non-verifiable spec draws no z and builds no tables);
+  7. the Fig. 9 sweep, ``repro_torch.launch.clip_iters`` at d =
+     78,223,360 (16 peers, 3 attackers at -10 mu): its lines, every fixed
+     budget through #12 (``clip_iters.KERNEL_CALLS`` launches), the runs to
+     tolerance capped at FIG9_CAP, the 20-iteration timing; then #12 held
+     against its plain version at that (16, d) stack;
+  8. the §4.1 toy, ``train_byzantine`` without ``--model`` (the host
+     loop), sign flip from step 10, 60 steps: btard with 16 peers (exactly
+     peers 9-15 banned, #1 60 launches), with 40 peers (33-39, #1 through
+     the peer-tiled passes) and the trusted-server centered_clip (no ban,
+     no kernel);
+  9. the launches of every kernel per path.
 
 Before the last line it prints the card's name and power limit and a JSON
 object with each kernel's numbers; the last line is the device record.
@@ -89,7 +105,13 @@ KERNELS = {  # wrapper's launch-count name -> (TPU kernel it replaces, source)
     "digest_tables_rows": (f"{TPU_KERNELS}:953", f"{CSRC}/centered_clip.cu"),
     "centered_clip_fused": (f"{TPU_KERNELS}:381", f"{CSRC}/centered_clip.cu"),
     "verify_tables": (f"{TPU_KERNELS}:776", f"{CSRC}/centered_clip.cu"),
+    "centered_clip": (f"{TPU_KERNELS}:117", f"{CSRC}/centered_clip.cu"),
 }
+D_FULL = 78_223_360  # ALBERT-large's d
+# the Fig. 9 sweep's runs to tolerance at full width are plain torch, ~12
+# ms an iteration over the 5 GB stack: capped at the trusted-server
+# default instead of the reference's 3000
+FIG9_CAP = 200
 # the wire codec each dequantizing kernel's path runs (its timed case)
 PATH_CODEC = {"butterfly_clip_fused_dequant": "int8",
               "mean_digest_fused_dequant": "bf16"}
@@ -344,6 +366,32 @@ def launch_cases(grads, n_parts, tau, weights, gen):
     ]
 
 
+def clip_cases(grads, tau, weights, gen):
+    """Kernel #12 over the whole (n, d) stack with a warm start, float32
+    and (untimed) bfloat16: (name, tag, kernel call, plain call, bound
+    bytes, operations, moved bytes), as in ``kernel_cases``; the passes
+    are #4's at one partition, so the bytes are #4's with V = d."""
+    from repro_torch.kernels import centered_clip as kc
+
+    n, d = grads.shape
+    v0 = (0.1 / math.sqrt(d)) * torch.randn((d,), generator=gen,
+                                            device=grads.device)
+    taus = [tau] * CLIP_ITERS
+    nd, it = n * d, CLIP_ITERS
+    xb = grads.to(torch.bfloat16)
+    return [
+        ("centered_clip", "f32",
+         lambda: kc.centered_clip(grads, taus, weights, v0),
+         lambda: kc.centered_clip_plain(grads, taus, weights, v0),
+         (nd + 2 * d) * 4, nd * 7 * it, (2 * it * nd + (2 + 3 * it) * d) * 4),
+        ("centered_clip", "bf16",
+         lambda: kc.centered_clip(xb, taus, weights, v0),
+         lambda: kc.centered_clip_plain(xb, taus, weights, v0),
+         nd * 2 + 2 * d * 4, nd * 7 * it,
+         2 * it * nd * 2 + (2 + 3 * it) * d * 4),
+    ]
+
+
 def stack(n, d, gen, dev):
     """Peer gradients with partition norms near 1 and one outlier peer."""
     part = -(-d // n)
@@ -397,8 +445,10 @@ def phase_kernels(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    d_full = 78_223_360
-    shapes = [(4, d_full, 4), (5, 5 * 1001 - 3, 5), (4, 4 * 517 - 3, 4)]
+    # the slice's stack, two small ragged ones, and two past 32 peers (the
+    # peer-tiled passes of every kernel)
+    shapes = [(4, D_FULL, 4), (5, 5 * 1001 - 3, 5), (4, 4 * 517 - 3, 4),
+              (33, 2**20 + 3, 33), (64, 2**20 + 3, 64)]
     stats, other = {}, {}  # other[codec]: the codec a path does not run
     for n, d, n_parts in shapes:
         grads = stack(n, d, gen, dev)
@@ -407,7 +457,7 @@ def phase_kernels(dev):
         for tau in (1.0, math.inf):
             for weights in (None, torch.tensor([1.0] * (n - 2) + [0.0, 1.0],
                                                device=dev)):
-                full = d == d_full and tau == 1.0 and weights is None
+                full = d == D_FULL and tau == 1.0 and weights is None
                 label = (f"n={n} d={d} tau={tau} "
                          f"zero_weights={weights is not None}")
                 for name, kern, plain, nbytes, ops, moved in (
@@ -415,6 +465,10 @@ def phase_kernels(dev):
                         + launch_cases(grads, n_parts, tau, weights, gen)):
                     hold(stats, name, f"{name} {label}", kern, plain,
                          nbytes, ops, moved, full)
+                for name, tag, kern, plain, nbytes, ops, moved in clip_cases(
+                        grads, tau, weights, gen):
+                    hold(stats, name, f"{name} {tag} {label}", kern, plain,
+                         nbytes, ops, moved, full and tag == "f32")
                 for (name, codec, kern, plain, nbytes, ops, moved,
                      twin) in digest_and_wire_cases(zero_payload, n_parts,
                                                     tau, weights, gen):
@@ -424,7 +478,7 @@ def phase_kernels(dev):
                          plain, nbytes, ops, moved, full, twin)
         # #9 over the sampled partitions (out of order), one of them with
         # an all-zero payload; timed at the sampled flagship's tau = 1
-        rows = [n_parts - 1, 1] if d == d_full else [n_parts - 1, 0, 2]
+        rows = [n_parts - 1, 1] if d == D_FULL else [n_parts - 1, 0, 2]
         part = kc.part_len(d, n_parts)
         zero_payload[1, rows[-1] * part:(rows[-1] + 1) * part] = 0.0
         for tau, kern, plain, nbytes, ops, moved, twin in rows_cases(
@@ -432,7 +486,7 @@ def phase_kernels(dev):
             hold(stats, "digest_tables_rows",
                  f"digest_tables_rows n={n} d={d} rows={rows} tau={tau}",
                  kern, plain, nbytes, ops, moved,
-                 d == d_full and tau == 1.0, twin)
+                 d == D_FULL and tau == 1.0, twin)
         del grads, zero_payload
         torch.cuda.empty_cache()
     keep = ("ms", "plain_ms", "bound_ms", "moved_bytes")
@@ -444,14 +498,15 @@ def phase_kernels(dev):
             for k in ("max_abs_err", "max_rel_err"):
                 main[k] = max(main[k], st[k])
             main["by_codec"][codec] = {k: st[k] for k in keep}
-    print("phase 2: kernels #1-#11 agree with their plain versions within "
+    print("phase 2: kernels #1-#12 agree with their plain versions within "
           f"rtol=atol={RTOL:g} (max relative error "
           f"{max(st['max_rel_err'] for st in stats.values()):.3e}), repeat "
           "bitwise, the wire kernels equal their float32 twins on the "
           "dequantized payloads bit for bit, and the sampled-digest kernel "
           "equals #2/#6 at the sampled rows bit for bit "
-          f"({len(shapes)} shapes x tau {{1, inf}} (#9 also 0) x weights x "
-          "codecs {int8, bf16})", flush=True)
+          f"({len(shapes)} shapes {[s[:2] for s in shapes]} x tau {{1, inf}} "
+          "(#9 also 0) x weights x codecs {int8, bf16}; #12 over f32 and "
+          "bf16 stacks)", flush=True)
     kc.reset_launch_counts()
     return stats
 
@@ -485,11 +540,12 @@ def step_breakdown(tr):
 
 
 def run_path(label, argv, attack=None, expect=(), breakdown=False,
-             launches=None):
+             launches=None, bans=True):
     """Drive one path through the launcher with the launch counts set to 0
     just before and read just after. ``expect``: kernels that must have
     launched; ``launches``: the exact count of every kernel that may
-    launch, all others 0, and the attacker must be banned."""
+    launch, all others 0, and then the attacker must be banned (``bans``)
+    or, for a non-verifiable baseline, no one (``bans=False``)."""
     from repro_torch.core.protocol import AttackConfig
     from repro_torch.kernels import centered_clip as kc
     from repro_torch.launch import train_byzantine as tb
@@ -502,7 +558,7 @@ def run_path(label, argv, attack=None, expect=(), breakdown=False,
     torch.cuda.synchronize()
     counts = dict(kc.LAUNCHES)
     byz = set(summary["byzantine"])
-    check(summary["d"] == 78_223_360, f"{label}: d = {summary['d']}")
+    check(summary["d"] == D_FULL, f"{label}: d = {summary['d']}")
     check(all(math.isfinite(r["grad_norm"]) for r in tr.history),
           f"{label}: non-finite grad norm")
     check(not summary["honest_accused"],
@@ -514,8 +570,9 @@ def run_path(label, argv, attack=None, expect=(), breakdown=False,
     if launches is not None:
         want = {name: launches.get(name, 0) for name in counts}
         check(counts == want, f"{label}: launches {counts}, expected {want}")
-        check(set(summary["banned"]) == byz,
-              f"{label}: attacker not banned: {summary}")
+        check(set(summary["banned"]) == (byz if bans else set()),
+              f"{label}: bans {summary['banned']}, expected "
+              f"{sorted(byz) if bans else []}")
     print(f"{label}: median step {statistics.median(seconds):.3f} s over "
           f"{len(seconds)} steps {[round(s, 4) for s in seconds]}; "
           f"launches {counts}", flush=True)
@@ -678,6 +735,84 @@ def run_launch_path(label, argv, launches):
     return counts
 
 
+def run_fig9(label, stats):
+    """The Fig. 9 sweep through its entry point at full width (d =
+    78,223,360, n = 16, 3 attackers at -10 mu): its lines, each fixed
+    budget through kernel #12 (the exact count read from the code,
+    ``clip_iters.KERNEL_CALLS``, every other kernel 0), the runs to
+    tolerance capped at FIG9_CAP. Checks: every error finite, more
+    iterations never worse than one, the warm start never slower than the
+    cold one; then, with the counts read, #12 at this path's (16, d)
+    stack (20 iterations at tau 5, the timed call) held against its plain
+    version as in phase 2, its errors folded into ``stats``. Returns the
+    launch counts."""
+    from repro_torch.kernels import centered_clip as kc
+    from repro_torch.launch import clip_iters
+
+    def emit(name, us, derived):
+        print(f"{label}: {name},{us:.1f},{derived}", flush=True)
+
+    torch.cuda.empty_cache()
+    kc.reset_launch_counts()
+    (res, _), sec = timed(lambda: clip_iters.run(
+        D_FULL, "cuda", max_iters=FIG9_CAP, emit=emit))
+    counts = dict(kc.LAUNCHES)
+    want = {name: 0 for name in counts}
+    want["centered_clip"] = clip_iters.KERNEL_CALLS
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    for tau_label, r in res.items():
+        errs = ([r["err"]] + list(r["budgets"].values())
+                + [e for pair in r["warm"].values() for e in pair])
+        check(all(map(math.isfinite, errs)),
+              f"{label}: non-finite error at tau {tau_label}: {r}")
+        check(r["budgets"][max(r["budgets"])] <= r["budgets"][1],
+              f"{label}: more iterations did worse at tau {tau_label}: {r}")
+        check(r["iters_warm"] <= r["iters_cold"],
+              f"{label}: warm start slower at tau {tau_label}: {r}")
+    print(f"{label}: {sec:.1f} s in all; launches {counts}", flush=True)
+    torch.cuda.empty_cache()
+    xs, _ = clip_iters.problem(D_FULL, device="cuda")
+    taus = [5.0] * clip_iters.TIMING_ITERS
+    hold(stats, "centered_clip", f"{label}: centered_clip n=16 d={D_FULL} "
+         f"{len(taus)} iterations", lambda: kc.centered_clip(xs, taus),
+         lambda: kc.centered_clip_plain(xs, taus), 0, 0, 0, False)
+    print(f"{label}: #12 at the (16, d) stack within rtol=atol={RTOL:g} of "
+          f"its plain version and bitwise repeatable (max abs err "
+          f"{stats['centered_clip']['max_abs_err']:.3e} over every #12 "
+          "case)", flush=True)
+    del xs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_toy(label, argv, banned, launches):
+    """The §4.1 toy classifier through ``train_byzantine``'s default path
+    (the host loop, no --model) with the launch counts set to 0 just
+    before and read just after. Checks: exactly ``banned`` is banned, every
+    gradient norm finite, ``launches`` the exact count of every kernel
+    (all others 0). Returns the counts."""
+    from repro_torch.kernels import centered_clip as kc
+    from repro_torch.launch import train_byzantine as tb
+
+    args = tb.build_parser().parse_args(argv)
+    kc.reset_launch_counts()
+    tr, accuracy, seconds = tb.run_toy(args)
+    torch.cuda.synchronize()
+    counts = dict(kc.LAUNCHES)
+    check(tr.banned == set(banned),
+          f"{label}: banned {sorted(tr.banned)}, expected {sorted(banned)}")
+    check(all(math.isfinite(r["grad_norm"]) for r in tr.history),
+          f"{label}: non-finite grad norm")
+    want = {name: 0 for name in counts}
+    want.update(launches)
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    acc = accuracy(tr.unraveled_params())
+    print(f"{label}: median step {statistics.median(seconds):.4f} s over "
+          f"{len(seconds)} steps; final accuracy {acc:.3f}; banned "
+          f"{sorted(tr.banned)}; launches {counts}", flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -792,7 +927,28 @@ def main():
     check(paths["launch_adaptive"]["verify_tables"] == 16,
           "launch_adaptive: expected 16 table passes")
 
-    print("phase 6: kernels launched per path: " + json.dumps(paths),
+    # the §4.1 full-vector baselines at full width: non-verifiable, so no
+    # z, no tables and no kernel
+    for defense in ("centered_clip", "krum", "geometric_median"):
+        _, paths[f"baseline_{defense}"] = run_path(
+            f"phase 6 (baseline {defense})",
+            common + ["--steps", "3", "--defense", defense], launches={},
+            bans=False)
+    paths["fig9"] = run_fig9("phase 7 (fig9, d=78223360)", stats)
+    # the toy classifier, 7 of the peers sign-flipping from step 10, 60
+    # steps of the host loop: btard runs #1 once a step (past 32 peers
+    # the peer-tiled passes); the trusted-server centered_clip no kernel
+    toy = ["--attack", "sign_flip", "--byzantine", "7"]
+    for tag, peers, defense, launches in (
+            ("toy_btard_16", 16, "btard", {"butterfly_clip_fused": 60}),
+            ("toy_btard_40", 40, "btard", {"butterfly_clip_fused": 60}),
+            ("toy_centered_clip_16", 16, "centered_clip", {})):
+        paths[tag] = run_toy(
+            f"phase 8 ({tag})", toy + ["--peers", str(peers), "--defense",
+                                       defense],
+            range(peers - 7, peers) if defense == "btard" else (), launches)
+
+    print("phase 9: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
             "adaptive", "adaptive_clip_step": "adaptive",
@@ -803,7 +959,8 @@ def main():
             "mean_digest_fused_dequant": "compressed_verified_mean_bf16",
             "digest_tables_rows": "sampled_flagship",
             "centered_clip_fused": "launch_fixed",
-            "verify_tables": "launch_adaptive"}
+            "verify_tables": "launch_adaptive",
+            "centered_clip": "fig9"}
     rows = []
     for name, (replaces, source) in KERNELS.items():
         st = stats[name]

@@ -11,12 +11,11 @@ uniform callable
     agg_fn(xs (n, d), weights (n,) | None, v0 (d,) | None, key)
         -> (agg (d,), AggInfo)
 
-Registered here: the flagship ``butterfly_clip`` and the three
-coordinatewise baselines of the paper's §4.1 (``mean``,
-``coordinate_median``, ``trimmed_mean``), which the wrappers lift into
-verifiable specs. ``geometric_median``, ``krum`` and the trusted-server
-``centered_clip`` are not ported yet (ROADMAP queue 1, item 4): naming them
-raises ``NotImplementedError``.
+Registered here: the flagship ``butterfly_clip`` and the six baselines of
+the paper's §4.1: the coordinatewise ``mean``, ``coordinate_median`` and
+``trimmed_mean``, which the wrappers lift into verifiable specs, and the
+full-vector ``geometric_median`` (Weiszfeld to eps), ``krum`` and the
+trusted-server ``centered_clip`` (run to tolerance), which they do not.
 
 Capability flags drive how the engine degrades (see the JAX module):
 verifiable specs run the verification phases through
@@ -31,6 +30,10 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.centered_clip import centered_clip_to_tol
+
+_BIG = 1e30  # "infinite" pairwise distance for masked rows
 
 
 class AggInfo(NamedTuple):
@@ -92,6 +95,81 @@ def trimmed_mean(xs, trim_ratio=0.2, weights=None):
     return torch.where(keep, s, torch.zeros_like(s)).sum(0) / cnt
 
 
+def geometric_median(xs, eps=1e-6, max_iters=200, weights=None,
+                     return_iters=False):
+    """Weiszfeld iterations from the weighted mean until ||v_new - v|| <=
+    eps or ``max_iters``."""
+    n = xs.shape[0]
+    w0 = (torch.ones((n,), dtype=torch.float32, device=xs.device)
+          if weights is None else weights)
+    v = (w0[:, None] * xs).sum(0) / torch.clamp(w0.sum(), min=1e-30)
+    eps32 = float(np.float32(eps))  # the reference compares in float32
+    delta, iters = math.inf, 0
+    while delta > eps32 and iters < max_iters:
+        dist = torch.linalg.vector_norm(xs - v[None], dim=1)
+        inv = w0 / torch.clamp(dist, min=1e-12)
+        v_new = (inv[:, None] * xs).sum(0) / torch.clamp(inv.sum(),
+                                                         min=1e-30)
+        delta = float(torch.linalg.vector_norm(v_new - v))
+        v, iters = v_new, iters + 1
+    if return_iters:
+        return v, iters
+    return v
+
+
+def pairwise_sq_dists(xs):
+    """(n, n) squared distances, each entry the exact sum of (x_i - x_j)^2
+    over the coordinates, one row at a time: an (n, d) temporary instead of
+    the (n, n, d) differences (80 GB for 16 peers at d = 78,223,360). Not
+    the Gram form ||x||^2 + ||y||^2 - 2<x, y>, which cancels
+    catastrophically between near neighbours and can change Krum's pick."""
+    return torch.stack([((xs[i][None, :] - xs) ** 2).sum(-1)
+                        for i in range(xs.shape[0])])
+
+
+def krum(xs, n_byzantine: int, weights=None):
+    """Krum (Blanchard et al. 2017): the row with the smallest sum of
+    squared distances to its n - b - 2 nearest neighbours. Banned rows
+    (weight 0) are masked out of the PAIRWISE matrix, not just the scores:
+    masked pairs sit at an "infinite" distance, so a banned colluder is no
+    cheap neighbour for its accomplices."""
+    n = xs.shape[0]
+    d2 = pairwise_sq_dists(xs)
+    d2 = d2 + torch.eye(n, dtype=d2.dtype, device=d2.device) * _BIG
+    if weights is not None:
+        banned = weights <= 0
+        d2 = torch.where(banned[None, :] | banned[:, None],
+                         torch.full_like(d2, _BIG), d2)
+    k = max(1, n - n_byzantine - 2)
+    scores = torch.sort(d2, dim=1).values[:, :k].sum(1)
+    if weights is not None:
+        scores = torch.where(weights > 0, scores,
+                             torch.full_like(scores, math.inf))
+    return xs[torch.argmin(scores)]
+
+
+def ps_centered_clip(xs, tau, eps=1e-6, max_iters=200, weights=None, v0=None,
+                     return_iters=False):
+    """The original (trusted-parameter-server) CenteredClip baseline, run to
+    tolerance."""
+    v, iters = centered_clip_to_tol(xs, tau, eps=eps, max_iters=max_iters,
+                                    weights=weights, v0=v0)
+    if return_iters:
+        return v, iters
+    return v
+
+
+# Legacy name -> fn map (host call sites that predate the spec registry).
+AGGREGATORS = {
+    "mean": mean_agg,
+    "coordinate_median": coordinate_median,
+    "trimmed_mean": trimmed_mean,
+    "geometric_median": geometric_median,
+    "krum": krum,
+    "centered_clip": ps_centered_clip,
+}
+
+
 # ---------------------------------------------------------------------------
 # The AggregatorSpec registry
 # ---------------------------------------------------------------------------
@@ -108,6 +186,7 @@ class AggregatorDef:
     verifiable: bool = False
     weighted: bool = True
     warm_startable: bool = False
+    adaptive: bool = False
     coordinatewise: bool = False
 
     @property
@@ -116,9 +195,6 @@ class AggregatorDef:
 
 
 REGISTRY: dict[str, AggregatorDef] = {}
-
-# registry entries of the JAX package that are not ported yet
-_NOT_PORTED = {"geometric_median", "krum", "centered_clip"}
 
 
 def register(defn: AggregatorDef):
@@ -160,10 +236,6 @@ class AggregatorSpec:
         try:
             return REGISTRY[self.name]
         except KeyError:
-            if self.name.split(":")[-1] in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"aggregator {self.name!r} is not ported to repro_torch "
-                    "yet (ROADMAP queue 1, item 4)") from None
             raise ValueError(
                 f"unknown aggregator {self.name!r}; registered: "
                 f"{', '.join(registered_aggregators())}") from None
@@ -179,6 +251,10 @@ class AggregatorSpec:
     @property
     def warm_startable(self) -> bool:
         return self.definition.warm_startable
+
+    @property
+    def adaptive(self) -> bool:
+        return self.definition.adaptive
 
     @property
     def coordinatewise(self) -> bool:
@@ -289,6 +365,17 @@ def compressed(spec, codec: str | None = None) -> AggregatorSpec:
     return compression.compressed(spec, codec=codec)
 
 
+def with_byzantine_default(spec: AggregatorSpec,
+                           n_byzantine: int) -> AggregatorSpec:
+    """Fill Krum's ``n_byzantine`` from the caller's known Byzantine count
+    when the spec left it unset (the trainer, the CLI). A spec reaching the
+    maker with it still unset falls back to the largest tolerable
+    ``(n - 3) // 2``."""
+    if spec.name == "krum" and spec.get("n_byzantine") is None:
+        return spec.override(n_byzantine=int(n_byzantine))
+    return spec
+
+
 # ---------------------------------------------------------------------------
 # Registered makers
 # ---------------------------------------------------------------------------
@@ -309,6 +396,38 @@ def _make_coordinate_median(n, d):
 def _make_trimmed_mean(n, d, trim_ratio=0.2):
     def fn(xs, weights=None, v0=None, key=None):
         return trimmed_mean(xs, trim_ratio, weights), AggInfo(1)
+
+    return fn
+
+
+def _make_geometric_median(n, d, eps=1e-6, max_iters=200):
+    def fn(xs, weights=None, v0=None, key=None):
+        v, iters = geometric_median(xs, eps=eps, max_iters=max_iters,
+                                    weights=weights, return_iters=True)
+        return v, AggInfo(iters)
+
+    return fn
+
+
+def _make_krum(n, d, n_byzantine=None):
+    if n_byzantine is None:
+        # Krum's guarantee needs n >= 2b + 3: the largest tolerable b
+        n_byzantine = max(0, (n - 3) // 2)
+    b = int(n_byzantine)
+
+    def fn(xs, weights=None, v0=None, key=None):
+        return krum(xs, n_byzantine=b, weights=weights), AggInfo(1)
+
+    return fn
+
+
+def _make_ps_centered_clip(n, d, tau=1.0, eps=1e-6, max_iters=200,
+                           warm_start=False):
+    def fn(xs, weights=None, v0=None, key=None):
+        v, iters = ps_centered_clip(
+            xs, tau, eps=eps, max_iters=max_iters, weights=weights,
+            v0=v0 if warm_start else None, return_iters=True)
+        return v, AggInfo(iters)
 
     return fn
 
@@ -338,12 +457,25 @@ register(AggregatorDef("coordinate_median", _make_coordinate_median,
 register(AggregatorDef("trimmed_mean", _make_trimmed_mean,
                        defaults=(("trim_ratio", 0.2),),
                        coordinatewise=True))
+register(AggregatorDef("geometric_median", _make_geometric_median,
+                       defaults=(("eps", 1e-6), ("max_iters", 200)),
+                       adaptive=True))
+register(AggregatorDef("krum", _make_krum,
+                       defaults=(("n_byzantine", None),)))
+register(AggregatorDef(
+    "centered_clip", _make_ps_centered_clip,
+    defaults=(("tau", 1.0), ("eps", 1e-6), ("max_iters", 200),
+              ("warm_start", False)),
+    warm_startable=True,
+    adaptive=True,
+))
 register(AggregatorDef(
     "butterfly_clip", _make_butterfly,
     defaults=(("tau", 1.0), ("n_iters", 60), ("adaptive_tol", None),
               ("warm_start", False)),
     verifiable=True,
     warm_startable=True,
+    adaptive=True,
 ))
 
 # the verified:<base> and compressed:<spec> wrappers register themselves on

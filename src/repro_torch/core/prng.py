@@ -60,8 +60,8 @@ def key(seed, device=None) -> torch.Tensor:
 PRNGKey = key
 
 
-def _counts(n: int, device):
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+def _counts(n: int, device, offset: int = 0):
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return idx >> 32, idx & _M32
 
 
@@ -82,18 +82,23 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y1, y2], dim=1)
 
 
-def bits(k: torch.Tensor, shape=()) -> torch.Tensor:
-    """32 random bits per element (uint32 values in an int64 tensor)."""
+def bits(k: torch.Tensor, shape=(), offset: int = 0) -> torch.Tensor:
+    """32 random bits per element (uint32 values in an int64 tensor).
+    ``offset`` starts the element counter there: the draw of a larger
+    array whose flat elements [offset, offset + prod(shape)) these are, so
+    a large array can be drawn in row blocks with the same bits."""
     shape = tuple(shape)
-    hi, lo = _counts(math.prod(shape), k.device)
+    hi, lo = _counts(math.prod(shape), k.device, offset)
     y1, y2 = threefry2x32(k[0], k[1], hi, lo)
     return (y1 ^ y2).reshape(shape)
 
 
-def uniform(k: torch.Tensor, shape=(), minval=0.0, maxval=1.0):
+def uniform(k: torch.Tensor, shape=(), minval=0.0, maxval=1.0,
+            offset: int = 0):
     """``jax.random.uniform`` in float32: 23 random mantissa bits in [1, 2)
-    shifted to [0, 1), then scaled to [minval, maxval)."""
-    b = (bits(k, shape) >> 9) | 0x3F800000
+    shifted to [0, 1), then scaled to [minval, maxval). ``offset`` as in
+    :func:`bits`."""
+    b = (bits(k, shape, offset) >> 9) | 0x3F800000
     floats = b.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
@@ -185,9 +190,10 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * big, p * x)
 
 
-def normal(k: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.normal`` in float32: sqrt(2) * erfinv(U(-1, 1))."""
+def normal(k: torch.Tensor, shape=(), offset: int = 0) -> torch.Tensor:
+    """``jax.random.normal`` in float32: sqrt(2) * erfinv(U(-1, 1)).
+    ``offset`` as in :func:`bits`."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(k, shape, lo, 1.0)
+    u = uniform(k, shape, lo, 1.0, offset)
     return torch.tensor(np.sqrt(2), dtype=torch.float32,
                         device=k.device) * erfinv(u)

@@ -1,8 +1,9 @@
 """Attack configuration of a BTARD run.
 
-Counterpart of ``repro.core.protocol.AttackConfig``. The legacy host-side
-``BTARDProtocol`` simulator of the JAX package is not ported (ROADMAP
-queue 1, item 7): the trainer drives ``core.engine`` directly.
+Counterpart of ``repro.core.protocol.AttackConfig``. The JAX package's
+host-side ``BTARDProtocol`` wrapper is not ported: the trainer's host
+loop (``core.btard_sgd.BTARDTrainer.train_step``) runs the same
+``engine.protocol_step`` on the active peers' gradients directly.
 """
 from __future__ import annotations
 

@@ -1,1 +1,2 @@
-from repro_torch.data.pipeline import TokenPipeline, peer_key  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    TokenPipeline, classification_batch, peer_key, peer_seed)

@@ -1,18 +1,40 @@
-"""Deterministic public-seed token pipeline.
+"""Deterministic public-seed data pipeline.
 
-Counterpart of ``repro.data.pipeline``'s ``peer_key``,
-``TokenPipeline.device_batch`` and ``TokenPipeline.batch``. BTARD needs
-PUBLIC data: every peer's minibatch for step t is a pure function of a
-public seed, so a validator recomputes anyone's gradient bit for bit. The
-tokens come from the port's threefry generator (``core.prng``) along the
-JAX package's key chain, so the integer tokens equal the JAX pipeline's
-for the same ``(global_seed, step, peer)``.
+Counterpart of ``repro.data.pipeline``'s ``peer_seed``, ``peer_key``,
+``TokenPipeline.device_batch`` / ``batch`` and ``classification_batch``.
+BTARD needs PUBLIC data: every peer's minibatch for step t is a pure
+function of a public seed, so a validator recomputes anyone's gradient bit
+for bit. The batches come from the port's threefry generator
+(``core.prng``) along the JAX package's key chains, so the integer tokens
+and labels equal the JAX pipeline's for the same seeds, and the gaussian
+features its float32 values.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import prng
+
+
+def peer_seed(global_seed: int, step: int, peer: int) -> int:
+    """xi_i^t as a host int, for the int-seeded ``classification_batch``."""
+    return (global_seed * 1_000_003 + step * 4099 + peer) % (2**31 - 1)
+
+
+def classification_batch(seed: int, batch: int, dim: int, n_classes: int,
+                         flip_labels: bool = False, margin: float = 2.0,
+                         device="cpu"):
+    """Gaussian mixture with fixed class means (deterministic in seed):
+    {"x": (batch, dim) f32, "y": (batch,) int64}. ``flip_labels`` is the
+    paper's LABEL FLIPPING attack (l -> K-1-l)."""
+    means = prng.normal(prng.key(12345, device=device),
+                        (n_classes, dim)) * margin  # the fixed task
+    k1, k2 = prng.split(prng.key(seed, device=device))
+    y = prng.randint(k1, (batch,), 0, n_classes)
+    x = means[y] + prng.normal(k2, (batch, dim))
+    if flip_labels:
+        y = n_classes - 1 - y
+    return {"x": x, "y": y}
 
 
 def peer_key(global_seed, step, peer, device=None):

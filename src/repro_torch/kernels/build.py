@@ -34,7 +34,7 @@ _STACK = (_P, _LL, _LL, _LL, _I, _I)
 SIGNATURES = {
     "centered_clip": {
         "cc_sq_pass": _STACK + (_P, _LL, _I, _P, _P),
-        "cc_update": _STACK + (_P, _P, _P, _LL, _I, _P, _P, _P, _F, _P),
+        "cc_update": _STACK + (_P, _P, _P, _LL, _I, _P, _P, _P, _F, _P, _P),
         "cc_dot_pass": _STACK + (_P, _P, _LL, _I, _P, _P, _P),
         "cc_rows_dot_pass": _STACK + (_P, _I, _P, _P, _LL, _I, _P, _P, _P),
         "cc_mean_pass": _STACK + (_P, _LL, _I, _P, _P),
@@ -48,7 +48,7 @@ SIGNATURES = {
     "wire": {
         "wire_sq_pass": (_I, _P, _P) + _STACK[1:] + (_P, _LL, _I, _P, _P),
         "wire_update": (_I, _P, _P) + _STACK[1:] + (_P, _P, _P, _LL, _I, _P,
-                                                    _P, _P, _F, _P),
+                                                    _P, _P, _F, _P, _P),
         "wire_dot_pass": (_I, _P, _P) + _STACK[1:] + (_P, _P, _LL, _I, _P,
                                                       _P, _P),
         "wire_mean_pass": (_I, _P, _P) + _STACK[1:] + (_P, _LL, _I, _P, _P),

@@ -29,12 +29,17 @@ wrapper                           replaces
 ``digest_tables_rows``            ``digest_tables_rows_pallas``
 ``centered_clip_fused``           ``centered_clip_fused_pallas``
 ``verify_tables``                 ``verify_tables_pallas``
+``centered_clip``                 ``centered_clip_pallas``
 ================================  =========================================
 
-The last two are the single-partition kernels of the launch path: one
-owner's received ``(n, part)`` stack. They run the passes of the batched
-kernels at ``n_parts = 1`` (the stack is then the matrix itself), under
-their own wrappers, launch counts and plain versions.
+The last three are single-partition kernels: one owner's received
+``(n, part)`` stack on the launch path, and ``core.centered_clip``'s
+``(n, d)`` stack (float32 or bfloat16). They run the passes of the
+batched kernels (#1, #2 and #4) at ``n_parts = 1`` (the stack is then the
+matrix itself), under their own wrappers, launch counts and plain versions.
+
+Any peer count n >= 1 is taken: above 32 peers the passes walk the peers
+in tiles of 32 (``csrc/centered_clip.cuh``, "Peer tiles").
 
 ``LAUNCHES`` counts kernel launches on the card: one per wrapper call, and
 for the adaptive loop one per iteration it runs (its step kernel). The
@@ -64,11 +69,14 @@ LAUNCHES = {
     "digest_tables_rows": 0,
     "centered_clip_fused": 0,
     "verify_tables": 0,
+    "centered_clip": 0,
 }
 _COUNT_LOCK = threading.Lock()
 # element type of a wire payload -> the kernels' dtype code (csrc/wire.cu)
 WIRE_DTYPES = {torch.int8: 1, torch.bfloat16: 2}
-MAX_PEERS = 32
+# peers a register tile holds (csrc: cc::kTile); above it the update that
+# carries the next norms needs a (P, part) scratch vector
+TILE = 32
 # CTAs per pass, spread over the partitions. A constant, not the card's SM
 # count, so the reduction order (and hence every bit) is the same anywhere.
 TARGET_CTAS = 1024
@@ -159,6 +167,11 @@ def verify_tables_plain(xs, v, z, tau):
     return s[0], norms[0]
 
 
+def centered_clip_plain(xs, taus, weights=None, v0=None):
+    return ref.centered_clip_ref(xs[None], taus, weights,
+                                 None if v0 is None else v0[None])[0]
+
+
 def butterfly_clip_adaptive_plain(grads, n_parts, tau, tol, max_iters,
                                   weights=None, v0=None):
     """The early-exit loop over ``adaptive_step_ref``: converged
@@ -168,21 +181,13 @@ def butterfly_clip_adaptive_plain(grads, n_parts, tau, tol, max_iters,
     v = (torch.zeros((n_parts, xs.shape[-1]), dtype=torch.float32,
                      device=xs.device)
          if v0 is None else v0.to(torch.float32))
-    sq = ref.sq_norms(xs, v)
-    tol2 = float(np.float32(tol) ** 2)
-    d2 = torch.full((n_parts,), math.inf, device=xs.device)
-    iters = torch.zeros((n_parts,), dtype=torch.int32, device=xs.device)
-    for _ in range(max_iters):
-        active = d2 > tol2
-        if not bool(active.any()):
-            break
+
+    def step(v, sq):
         v_new, sq_new = ref.adaptive_step_ref(xs, v, sq, tau, weights)
-        upd2 = ((v_new - v) ** 2).sum(-1)
-        v = torch.where(active[:, None], v_new, v)
-        sq = torch.where(active[:, None], sq_new, sq)
-        d2 = torch.where(active, upd2, d2)
-        iters += active.to(torch.int32)
-    return v, iters
+        return v_new, ((v_new - v) ** 2).sum(-1), sq_new
+
+    return ref.freeze_by_select(step, v, ref.sq_norms(xs, v), tol,
+                                max_iters)
 
 
 # ---------------------------------------------------------------------------
@@ -205,9 +210,11 @@ class _Stack:
     The finishing kernels read only partial sums and are the float32
     library's either way."""
 
-    def __init__(self, grads, n_parts, scales=None):
-        from repro_torch.kernels import build
-
+    @staticmethod
+    def check(grads, scales=None):
+        """Raise ValueError for a stack the kernels do not take: not 2-D,
+        not float32 (or int8/bf16 with scales), a column stride other than
+        1, or no peer. Any peer count n >= 1 is taken."""
         wire = WIRE_DTYPES.get(grads.dtype)
         if grads.dim() != 2 or (wire is None) != (grads.dtype == torch.float32):
             raise ValueError(f"the stack must be (n, d) float32, int8 or "
@@ -218,11 +225,17 @@ class _Stack:
                              "only with one")
         if grads.stride(1) != 1:
             raise ValueError("the stack must have unit column stride")
+        if grads.shape[0] < 1:
+            raise ValueError("the stack needs at least one peer")
+        return wire
+
+    def __init__(self, grads, n_parts, scales=None):
+        from repro_torch.kernels import build
+
+        wire = self.check(grads, scales)
         self.n, self.d = grads.shape
-        if not 1 <= self.n <= MAX_PEERS:
-            raise ValueError(f"the kernels take 1..{MAX_PEERS} peers, "
-                             f"got {self.n}")
         self.P = int(n_parts)
+        self._scratch = None
         self.part = part_len(self.d, self.P)
         self.device = grads.device
         self.grads = grads
@@ -272,8 +285,14 @@ class _Stack:
 
     def update(self, v, cw, wsum, sq_part=None, d2_part=None, d2=None,
                tol2=0.0):
+        if sq_part is not None and self.n > TILE and self._scratch is None:
+            # the peer-tiled update keeps each column's update here between
+            # its two sweeps; one buffer per stack, reused by every iteration
+            self._scratch = self.empty(self.P, self.part)
+        scratch = self._scratch if sq_part is not None else None
         self._pass("update", _ptr(v), _ptr(cw), _ptr(wsum), self.cs, self.C,
-                   _ptr(sq_part), _ptr(d2_part), _ptr(d2), tol2)
+                   _ptr(sq_part), _ptr(d2_part), _ptr(d2), tol2,
+                   _ptr(scratch))
 
     def dot_pass(self, v, z, dot_part, sq_part=None):
         self._pass("dot_pass", _ptr(v), _ptr(z), self.cs, self.C,
@@ -475,13 +494,10 @@ def butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
     return v, iters
 
 
-def butterfly_clip(grads, n_parts, taus, weights=None, v0=None):
-    """Two-phase CenteredClip without tables: per iteration a norm pass
-    (norms recomputed from x) and an update pass. Returns (n_parts, part)."""
-    taus = [float(t) for t in taus]
-    if not _on_cuda(grads):
-        return butterfly_clip_plain(grads, n_parts, taus, weights, v0)
-    k = _Stack(grads, n_parts)
+def _two_pass_clip(k, taus, weights, v0):
+    """The passes of the two-phase kernel over a validated stack ``k``: per
+    iteration a norm pass (norms recomputed from x, clip weights at that
+    iteration's tau) and an update pass. Returns v (k.P, k.part)."""
     w, v = k.weights(weights), k.start(v0)
     sq_part = k.empty(k.P, k.C, k.n)
     sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
@@ -489,8 +505,44 @@ def butterfly_clip(grads, n_parts, taus, weights=None, v0=None):
         k.sq_pass(v, sq_part)
         k.finish_weights(sq_part, w, tau, sq, cw, wsum if it == 0 else None)
         k.update(v, cw, wsum)
+    return v
+
+
+def butterfly_clip(grads, n_parts, taus, weights=None, v0=None):
+    """Two-phase CenteredClip without tables: per iteration a norm pass
+    (norms recomputed from x) and an update pass. Returns (n_parts, part)."""
+    taus = [float(t) for t in taus]
+    if not _on_cuda(grads):
+        return butterfly_clip_plain(grads, n_parts, taus, weights, v0)
+    v = _two_pass_clip(_Stack(grads, n_parts), taus, weights, v0)
     _count("butterfly_clip")
     return v
+
+
+def centered_clip(xs, taus, weights=None, v0=None):
+    """Single-partition CenteredClip with a per-iteration tau schedule
+    (kernel #12): #4's two passes an iteration over the whole (n, d) stack,
+    v += sum_i w_i min(1, taus[l]/||x_i - v||) (x_i - v) / max(sum_i w_i,
+    1e-30), 2 len(taus) passes, no tables. xs (n, d) float32 or bfloat16
+    (widened exactly in registers); weights (n,); v0 (d,) warm start.
+    Returns v (d,) float32."""
+    taus = [float(t) for t in taus]
+    if not _on_cuda(xs):
+        return centered_clip_plain(xs, taus, weights, v0)
+    if xs.dim() != 2 or xs.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"xs must be an (n, d) float32 or bfloat16 stack, "
+                         f"got {tuple(xs.shape)} {xs.dtype}")
+    if v0 is not None and tuple(v0.shape) != (xs.shape[1],):
+        raise ValueError(f"v0 must be ({xs.shape[1]},), got "
+                         f"{tuple(v0.shape)}")
+    # a bf16 stack runs the wire passes with unit scales: q * 1 is exact
+    scales = (None if xs.dtype == torch.float32 else
+              torch.ones((1, xs.shape[0]), dtype=torch.float32,
+                         device=xs.device))
+    v = _two_pass_clip(_Stack(xs, 1, scales), taus, weights,
+                       None if v0 is None else v0[None])
+    _count("centered_clip")
+    return v[0]
 
 
 def digest_tables_batched(grads, n_parts, agg, z):

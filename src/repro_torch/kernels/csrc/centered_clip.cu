@@ -24,13 +24,17 @@
 //       (n, part) partition, P = 1;
 //   * verify_tables_pallas          (one owner's tables against a given
 //       aggregate, the launch path's adaptive epilogue): the passes of
-//       verify_tables_batched_pallas at P = 1.
-// The two single-partition kernels read the owner's received stack, a
-// contiguous (n, part) matrix, so the partition count is 1 and every pass
-// spreads its CTAs over chunks of that one partition. Like the batched
-// passes they are bound by bytes (a few float32 operations per element
-// read): the design reads the stack once per pass, n_iters + 2 passes for
-// the fused clip and one for the tables.
+//       verify_tables_batched_pallas at P = 1;
+//   * centered_clip_pallas          (core.centered_clip's fixed budget over
+//       one (n, d) stack, a per-iteration tau): the passes of
+//       butterfly_clip_pallas at P = 1 (a bf16 stack runs wire.cu's passes
+//       with unit scales, an exact widening).
+// The three single-partition kernels read one contiguous (n, part)
+// matrix, so the partition count is 1 and every pass spreads its CTAs
+// over chunks of that one partition. Like the batched passes they are
+// bound by bytes (a few float32 operations per element read): the design
+// reads the stack once per pass, n_iters + 2 passes for the fused clip,
+// one for the tables and 2 n_iters for the two-phase clip.
 // The wire-payload twins of butterfly_clip_fused_pallas and
 // mean_digest_fused_pallas are wire.cu.
 
@@ -41,7 +45,7 @@ using cc::kThreads;
 // ---------------------------------------------------------------------------
 // Plain C launchers (loaded with ctypes). Each enqueues on `stream`, does not
 // synchronise, allocates nothing, and returns cudaGetLastError() (0 = ok).
-// Peer counts above 32 are refused with cudaErrorInvalidValue.
+// Any peer count n >= 1: above 32 the passes walk the peers in tiles.
 // ---------------------------------------------------------------------------
 extern "C" int cc_sq_pass(const float* x, long long ld, long long part,
                           long long d, int n, int P, const float* v,
@@ -56,18 +60,22 @@ extern "C" int cc_sq_pass(const float* x, long long ld, long long part,
   return cc::launch_status();
 }
 
+// `scratch`: a (P, part) f32 buffer, needed only above 32 peers when the
+// update carries the next norms (sq_part given).
 extern "C" int cc_update(const float* x, long long ld, long long part,
                          long long d, int n, int P, float* v, const float* cw,
                          const float* wsum, long long cs, int C,
                          float* sq_part, float* d2_part, const float* d2,
-                         float tol2, void* stream) {
+                         float tol2, float* scratch, void* stream) {
   const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
   const dim3 grid(C, P);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool with_sq = sq_part != nullptr, with_d2 = d2 != nullptr;
+  if (with_sq && n > cc::kTile && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
 #define LAUNCH_SD(N, SQ, D2)                                         \
   cc::update_kernel<N, 0, SQ, D2><<<grid, kThreads, 0, st>>>(       \
-      s, v, cw, wsum, cs, sq_part, d2_part, d2, tol2)
+      s, v, cw, wsum, cs, sq_part, d2_part, d2, tol2, scratch)
 #define LAUNCH(N)                      \
   do {                                 \
     if (with_sq && with_d2) {          \
@@ -154,8 +162,8 @@ extern "C" int cc_finish_weights(const float* sq_part, int P, int C, int n,
                                  float* cw_out, float* wsum_out,
                                  const float* d2_part, float* d2, int* iters,
                                  float tol2, void* stream) {
-  if (n > cc::kMaxPeers) return static_cast<int>(cudaErrorInvalidValue);
-  cc::finish_weights_kernel<<<P, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  cc::finish_weights_kernel<<<cc::finish_grid(P, n), 32, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       sq_part, C, n, w, tau, sq_out, cw_out, wsum_out, d2_part, d2, iters,
       tol2);
   return cc::launch_status();
@@ -165,9 +173,8 @@ extern "C" int cc_finish_tables(const float* dot_part, const float* sq_part,
                                 const float* sq_in, int P, int C, int n,
                                 float tau, float* s_out, float* norm_out,
                                 void* stream) {
-  if (n > cc::kMaxPeers) return static_cast<int>(cudaErrorInvalidValue);
   cc::finish_tables_kernel<true>
-      <<<P, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<cc::finish_grid(P, n), 32, 0, static_cast<cudaStream_t>(stream)>>>(
           dot_part, sq_part, sq_in, C, n, tau, s_out, norm_out);
   return cc::launch_status();
 }
@@ -175,9 +182,8 @@ extern "C" int cc_finish_tables(const float* dot_part, const float* sq_part,
 extern "C" int cc_finish_digests(const float* dot_part, const float* sq_part,
                                  int P, int C, int n, float* s_out,
                                  float* norm_out, void* stream) {
-  if (n > cc::kMaxPeers) return static_cast<int>(cudaErrorInvalidValue);
   cc::finish_tables_kernel<false>
-      <<<P, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<cc::finish_grid(P, n), 32, 0, static_cast<cudaStream_t>(stream)>>>(
           dot_part, sq_part, nullptr, C, n, 0.f, s_out, norm_out);
   return cc::launch_status();
 }

@@ -37,12 +37,19 @@ template <int DT>
 int update(const void* x, const float* scales, long long ld, long long part,
            long long d, int n, int P, float* v, const float* cw,
            const float* wsum, long long cs, int C, float* sq_part,
-           cudaStream_t st) {
+           float* scratch, cudaStream_t st) {
   const auto s = cc::make_stack<DT>(x, scales, ld, part, d, n);
   const dim3 grid(C, P);
-#define LAUNCH(N)                                                   \
-  cc::update_kernel<N, DT, true, false><<<grid, kThreads, 0, st>>>( \
-      s, v, cw, wsum, cs, sq_part, nullptr, nullptr, 0.f)
+#define LAUNCH(N)                                                         \
+  do {                                                                    \
+    if (sq_part != nullptr) {                                             \
+      cc::update_kernel<N, DT, true, false><<<grid, kThreads, 0, st>>>(   \
+          s, v, cw, wsum, cs, sq_part, nullptr, nullptr, 0.f, scratch);   \
+    } else {                                                              \
+      cc::update_kernel<N, DT, false, false><<<grid, kThreads, 0, st>>>(  \
+          s, v, cw, wsum, cs, nullptr, nullptr, nullptr, 0.f, nullptr);   \
+    }                                                                     \
+  } while (0)
   CC_DISPATCH_PEERS(n, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
@@ -104,19 +111,22 @@ extern "C" int wire_sq_pass(int dtype, const void* x, const float* scales,
                 static_cast<cudaStream_t>(stream));
 }
 
-// One CenteredClip iteration carrying the next iteration's norms (the
-// fused kernel's update). The adaptive loop's frozen-partition variant is
-// not built for wire payloads: d2 must be null and sq_part given.
+// One CenteredClip iteration, carrying the next iteration's norms when
+// sq_part is given (the fused kernel's update) or not (the two-pass
+// kernel's, #12 over a bf16 stack). The adaptive loop's frozen-partition
+// variant is not built for wire payloads: d2 must be null. `scratch` as in
+// cc_update.
 extern "C" int wire_update(int dtype, const void* x, const float* scales,
                            long long ld, long long part, long long d, int n,
                            int P, float* v, const float* cw,
                            const float* wsum, long long cs, int C,
                            float* sq_part, float* d2_part, const float* d2,
-                           float tol2, void* stream) {
-  if (sq_part == nullptr || d2_part != nullptr || d2 != nullptr)
+                           float tol2, float* scratch, void* stream) {
+  if (d2_part != nullptr || d2 != nullptr ||
+      (sq_part != nullptr && n > cc::kTile && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   WIRE_DISPATCH(update, x, scales, ld, part, d, n, P, v, cw, wsum, cs, C,
-                sq_part, static_cast<cudaStream_t>(stream));
+                sq_part, scratch, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int wire_dot_pass(int dtype, const void* x, const float* scales,

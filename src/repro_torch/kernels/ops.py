@@ -10,7 +10,17 @@ tensor the plain versions. There is no switch beside that.
 """
 from __future__ import annotations
 
+import numpy as np
+
 from repro_torch.kernels import centered_clip as _k
+
+
+def centered_clip_op(xs, tau, weights=None, v0=None, *, n_iters: int = 20):
+    """Kernel-backed single-partition CenteredClip (#12): xs (n, d) f32 or
+    bf16, tau a scalar or an (n_iters,) schedule, broadcast to n_iters
+    float32 radii -> v (d,) f32. v0: optional (d,) warm start."""
+    taus = np.broadcast_to(np.asarray(tau, np.float32), (n_iters,))
+    return _k.centered_clip(xs, taus.tolist(), weights, v0)
 
 
 def centered_clip_fused_op(xs, tau, z, weights=None, tau_v=None, v0=None, *,

@@ -21,12 +21,15 @@ kernel's dataflow:
   partitions ``rows`` only;
 * ``mean_digest_fused_ref`` — the weighted mean, then its digests;
 * ``dequantize_ref`` and the ``*_dequant_ref`` twins — the same functions
-  over int8/bf16 wire payloads, dequantized as ``f32(q) * scale``.
+  over int8/bf16 wire payloads, dequantized as ``f32(q) * scale``;
+* ``freeze_by_select`` — the early-exit loop of the adaptive budget, shared
+  by the adaptive kernel's plain version and ``core.centered_clip``.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -75,6 +78,29 @@ def adaptive_step_ref(xs, v, sq, tau, weights=None):
     upd = (cw.unsqueeze(-1) * diff).sum(-2) / wsum
     nd = diff - upd.unsqueeze(-2)
     return v + upd, (nd * nd).sum(-1)
+
+
+def freeze_by_select(step, v, carry, tol, max_iters):
+    """The adaptive loop over partitions: ``step(v, carry) -> (v_new,
+    d2 (P,), carry_new)`` with d2 the step's squared update norm. A
+    partition whose last d2 is <= tol^2 is frozen by select (its v and
+    carry stop changing) while the others go on; the loop stops when every
+    partition is frozen, or after ``max_iters``. v (P, part); carry (P, ...)
+    or None. Returns (v, iters (P,) int32)."""
+    tol2 = float(np.float32(tol) ** 2)
+    d2 = torch.full((v.shape[0],), math.inf, device=v.device)
+    iters = torch.zeros((v.shape[0],), dtype=torch.int32, device=v.device)
+    for _ in range(max_iters):
+        active = d2 > tol2
+        if not bool(active.any()):
+            break
+        v_new, d2_new, carry_new = step(v, carry)
+        v = torch.where(active[:, None], v_new, v)
+        if carry is not None:
+            carry = torch.where(active[:, None], carry_new, carry)
+        d2 = torch.where(active, d2_new, d2)
+        iters += active.to(torch.int32)
+    return v, iters
 
 
 def sq_norms(xs, v):

@@ -1,20 +1,27 @@
-"""Scanned BTARD-SGD over a real LM on the CUDA device: the counterpart of
-``run_model`` in the JAX package's ``examples/train_byzantine.py``, with
-the same flags, the same per-step lines and the same ``SUMMARY {...}``
-line, plus ``--device`` (default ``cuda``).
+"""The paper's §4.1-style controlled experiment on the CUDA device: the
+counterpart of the JAX package's ``examples/train_byzantine.py``, with the
+same flags and printed lines, plus ``--device`` (default ``cuda``).
 
+Without ``--model`` it runs the toy gaussian-mixture classifier through
+the host loop (``BTARDTrainer.run``): 16 peers, the last 7 Byzantine,
+attack from step 10, ``sgd(0.3, momentum=0.9)``, 60 steps, printing the
+accuracy and the bans. ``--model`` trains a zoo LM (``albert_large``)
+through the scanned engine (``run_scan``, 4 peers, one attacker) and
+prints one line per step and a ``SUMMARY {...}`` line.
+
+  PYTHONPATH=src python -m repro_torch.launch.train_byzantine \\
+      --attack sign_flip --defense btard
+  PYTHONPATH=src python -m repro_torch.launch.train_byzantine \\
+      --defense krum --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train_byzantine \\
       --model albert_large --full --attack sign_flip --steps 6
-  PYTHONPATH=src python -m repro_torch.launch.train_byzantine \\
-      --model albert_large --device cpu --steps 3
 
-``--aggregator`` takes any ported spec (``butterfly_clip[:...]``,
-``verified:mean``, ``verified:trimmed_mean``, ``verified:coordinate_median``,
-``compressed:<spec>[:codec=int8|bf16]``) and overrides ``--defense``, which
-takes ``btard`` or the baselines ``mean``, ``coordinate_median``,
-``trimmed_mean``. Only the model path is ported: the toy classifier (no
-``--model``) and the ``geometric_median``, ``krum`` and ``centered_clip``
-defenses wait for ROADMAP queue 1, items 7 and 4.
+``--defense`` takes ``btard`` or any of the §4.1 baselines (``mean``,
+``coordinate_median``, ``trimmed_mean``, ``geometric_median``, ``krum``,
+``centered_clip``); ``--aggregator`` takes any spec
+(``butterfly_clip[:...]``, ``verified:<base>``,
+``compressed:<spec>[:codec=int8|bf16]``, or a baseline name) and
+overrides it on the engine path.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 
 from repro_torch.core.btard_sgd import BTARDTrainer, TrainerConfig
 from repro_torch.core.protocol import AttackConfig
-from repro_torch.models.workload import lm_setup
+from repro_torch.models.workload import classification_setup, lm_setup
 from repro_torch.optim import sgd
 
 
@@ -40,15 +47,19 @@ def build_parser():
                     choices=["btard", "mean", "coordinate_median",
                              "geometric_median", "trimmed_mean", "krum",
                              "centered_clip"])
-    ap.add_argument("--peers", type=int, default=None, help="default: 4")
-    ap.add_argument("--byzantine", type=int, default=None, help="default: 1")
-    ap.add_argument("--steps", type=int, default=None, help="default: 6")
+    ap.add_argument("--peers", type=int, default=None,
+                    help="default: 16 (toy) / 4 (--model)")
+    ap.add_argument("--byzantine", type=int, default=None,
+                    help="default: 7 (toy) / 1 (--model)")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="default: 60 (toy) / 6 (--model)")
     ap.add_argument("--attack-start", type=int, default=None,
-                    help="default: 0")
+                    help="default: 10 (toy) / 0 (--model)")
     ap.add_argument("--tau", type=float, default=1.0)
     ap.add_argument("--validators", type=int, default=2)
     ap.add_argument("--model", default=None, metavar="ARCH",
-                    help="the LM to train (albert_large)")
+                    help="train the LM (albert_large) through the scanned "
+                         "engine instead of the toy classifier")
     ap.add_argument("--aggregator", default=None,
                     help="AggregatorSpec string (overrides --defense), e.g. "
                          "butterfly_clip:warm_start=true,adaptive_tol=1e-4, "
@@ -61,7 +72,8 @@ def build_parser():
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--clip-iters", type=int, default=None,
-                    help="CenteredClip iteration budget (default 5)")
+                    help="CenteredClip iteration budget (default 60 toy / "
+                         "5 model)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -72,8 +84,6 @@ def run_model(args, attack=None):
     SUMMARY line. ``attack`` overrides the AttackConfig built from the
     flags (e.g. to switch the aggregator attack on). Returns (trainer,
     summary, seconds of each step)."""
-    if args.model is None:
-        raise SystemExit("the toy classifier is not ported yet; pass --model")
     peers = args.peers or 4
     n_byz = 1 if args.byzantine is None else args.byzantine
     steps = args.steps or 6
@@ -131,8 +141,58 @@ def run_model(args, attack=None):
     return tr, summary, seconds
 
 
+def run_toy(args):
+    """The toy classifier through the host loop; prints the reference's
+    lines (every 5th step and every ban step: accuracy and bans, then the
+    final accuracy and the banned peers). Returns (trainer, accuracy fn,
+    seconds of each step)."""
+    peers = args.peers or 16
+    n_byz = 7 if args.byzantine is None else args.byzantine
+    loss_fn, params0, batch_fn, accuracy = classification_setup(
+        device=args.device)
+    cfg = TrainerConfig(
+        n_peers=peers,
+        byzantine=tuple(range(peers - n_byz, peers)),
+        attack=AttackConfig(
+            kind=args.attack,
+            start_step=10 if args.attack_start is None else args.attack_start,
+            delay=5),
+        defense=args.defense,
+        aggregator=args.aggregator,
+        tau=args.tau,
+        clip_iters=args.clip_iters or 60,
+        m_validators=args.validators,
+        device=args.device,
+    )
+    tr = BTARDTrainer(loss_fn, params0, batch_fn, cfg,
+                      optimizer=sgd(0.3, momentum=0.9))
+
+    def log(rec):
+        if rec["step"] % 5 == 0 or rec.get("banned_now"):
+            acc = accuracy(tr.unraveled_params())
+            extra = (f" BANNED {rec['banned_now']}"
+                     if rec.get("banned_now") else "")
+            print(f"step {rec['step']:3d}  acc={acc:.3f}  "
+                  f"banned={rec['n_banned']}/{n_byz}{extra}")
+
+    seconds = []
+    for _ in range(args.steps or 60):
+        t0 = time.perf_counter()
+        tr.run(1, log=log)
+        if tr.device.type == "cuda":
+            torch.cuda.synchronize(tr.device)
+        seconds.append(time.perf_counter() - t0)
+    print(f"\nfinal accuracy: {accuracy(tr.unraveled_params()):.3f}")
+    print(f"banned peers  : {sorted(tr.banned)}")
+    return tr, accuracy, seconds
+
+
 def main(argv=None):
-    run_model(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.model:
+        run_model(args)
+    else:
+        run_toy(args)
 
 
 if __name__ == "__main__":

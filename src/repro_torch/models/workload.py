@@ -1,10 +1,14 @@
-"""Real-model BTARD workloads: a zoo LM behind the trainer API.
+"""BTARD workloads behind the trainer API.
 
-Counterpart of ``repro.models.workload``. ``lm_setup(arch)`` packages a
-model as the ``(loss_fn, params0, batch_fn, model)`` quadruple that
+Counterpart of ``repro.models.workload`` and of the JAX package's toy
+``classification_setup`` (``benchmarks/common.py``, which imports jax, so
+the port keeps its own copy here). ``lm_setup(arch)`` packages a zoo LM as
+the ``(loss_fn, params0, batch_fn, model)`` quadruple that
 ``BTARDTrainer`` consumes: per-peer batches from the public-seed
-``TokenPipeline``, parameters from ``Model.init_params``. It is an entry
-point: it runs on the CUDA device unless ``device="cpu"`` is given.
+``TokenPipeline``, parameters from ``Model.init_params``.
+``classification_setup()`` is the paper's §4.1 controlled workload, a
+linear softmax classifier on a gaussian mixture. Both are entry points:
+they run on the CUDA device unless ``device="cpu"`` is given.
 """
 from __future__ import annotations
 
@@ -15,8 +19,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import _ARCH_MODULES, get_config, reduce_config
 from repro_torch.core import prng
-from repro_torch.data import TokenPipeline
+from repro_torch.data import TokenPipeline, classification_batch, peer_seed
 from repro_torch.models.model import Model
+
+DIM, CLASSES = 16, 4  # the toy classifier's default width
 
 
 def _normalize_arch(arch: str) -> str:
@@ -62,3 +68,39 @@ def lm_setup(arch: str, *, seq_len: int = 32, batch_size: int = 2,
 
     params0 = model.init_params(prng.key(init_seed, device=device))
     return loss_fn, params0, batch_fn, model
+
+
+def classification_setup(dim=DIM, classes=CLASSES, device=None):
+    """The controlled §4.1 workload: (loss_fn, params0, batch_fn,
+    accuracy). ``dim`` scales the gradient dimension; the class-mean
+    margin shrinks with sqrt(DIM / dim) so the difficulty stays the same
+    (at high dims the classes would separate so fast that the softmax
+    saturates to zero gradients before the attack window opens). Each
+    peer's batch is 16 samples of ``classification_batch`` at
+    ``peer_seed(0, step, peer)``; ``accuracy(params)`` scores a fixed
+    1024-sample eval batch (seed 10**7)."""
+    device = resolve_device(device)
+    margin = 2.0 * (DIM / dim) ** 0.5
+
+    def batch_fn(peer, step, flipped):
+        return classification_batch(peer_seed(0, step, peer), 16, dim,
+                                    classes, flip_labels=flipped,
+                                    margin=margin, device=device)
+
+    def loss_fn(params, batch):
+        logits = batch["x"] @ params["w"] + params["b"]
+        logp = torch.log_softmax(logits, dim=1)
+        return -torch.mean(torch.take_along_dim(logp, batch["y"][:, None],
+                                                dim=1))
+
+    params0 = {"w": torch.zeros((dim, classes), device=device),
+               "b": torch.zeros((classes,), device=device)}
+    eval_batch = classification_batch(10**7, 1024, dim, classes,
+                                      margin=margin, device=device)
+
+    def accuracy(params):
+        logits = eval_batch["x"] @ params["w"] + params["b"]
+        hits = torch.argmax(logits, dim=1) == eval_batch["y"]
+        return float(hits.to(torch.float32).mean())
+
+    return loss_fn, params0, batch_fn, accuracy

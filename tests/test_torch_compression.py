@@ -117,8 +117,9 @@ def test_compressed_combinator_and_registry_like_jax():
                 jcomp.compressed(name, codec).canonical()
     with pytest.raises(ValueError):
         tcomp.compressed("butterfly_clip", "fp4")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tcomp.compressed("krum")
+    for compressed in (tcomp.compressed, jcomp.compressed):
+        with pytest.raises(ValueError, match="not coordinatewise"):
+            compressed("krum")
 
 
 SPECS = [

@@ -1,11 +1,12 @@
-"""Kernels #1-#11 on the card: each CUDA kernel against its plain PyTorch
+"""Kernels #1-#12 on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (rtol = atol = 1e-5), bitwise repeatable,
 launch counted; the wire-payload twins #7 and #8 give the bits of #1 and
 #5 on the dequantized payloads, and the sampled-digest kernel #9 gives, row
 for row, the bits of #2 (tau > 0) or #6 (tau = 0) at the sampled
-partitions; the single-partition kernels #10 and #11 (one launch owner's
-stack) give the bits of #1 and #2 at one partition. Marked ``cuda``; skips
-without a CUDA device. Run on the GPU
+partitions; the single-partition kernels #10, #11 and #12 give the bits of
+#1, #2 and #4 at one partition, #12 also over a bf16 stack and with a tau
+schedule; and every kernel above 32 peers (n = 33 and 64, the peer-tiled
+passes). Marked ``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -192,3 +193,112 @@ def test_single_partition_kernels_match_plain_versions_on_card(cuda, n, part,
     a = kc.verify_tables(xs, v, z, tau)
     b = kc.verify_tables_batched(xs, 1, v[None], z[None], tau)
     assert all(torch.equal(x, y[0]) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, d", [(2, 517), (4, 4096 + 5), (16, 16 * 3000 + 5),
+                                  (33, 1001)])
+def test_centered_clip_kernel_matches_plain_version_on_card(cuda, n, d,
+                                                            dtype):
+    """#12 with weights (a banned peer), a warm start and a tau schedule
+    with an infinite radius in it; its bits are #4's at one partition."""
+    g, _, v, w = _inputs(n, n * d, cuda)
+    xs, v0 = g[:, :d].contiguous().to(dtype), v[0]
+    for taus in ([1.0] * 5, [0.5, 2.0, math.inf, 1.0]):
+        _check(lambda: kc.centered_clip(xs, taus, w, v0),
+               lambda: kc.centered_clip_plain(xs, taus, w, v0),
+               "centered_clip")
+        _check(lambda: kc.centered_clip(xs, taus),
+               lambda: kc.centered_clip_plain(xs, taus), "centered_clip")
+    if dtype == torch.float32:
+        a = kc.centered_clip(xs, [1.0] * 5, w, v0)
+        b = kc.butterfly_clip(xs, 1, [1.0] * 5, w, v0[None])
+        assert torch.equal(a, b[0])
+
+
+@pytest.mark.cuda
+def test_centered_clip_kernel_rejects_bad_inputs_on_card(cuda):
+    before = kc.LAUNCHES["centered_clip"]
+    xs = torch.zeros((4, 100), device=cuda)
+    for bad in (xs.to(torch.int8), xs[0], xs.t()):
+        with pytest.raises(ValueError):
+            kc.centered_clip(bad, [1.0])
+    with pytest.raises(ValueError, match="v0"):
+        kc.centered_clip(xs, [1.0], v0=torch.zeros(99, device=cuda))
+    assert kc.LAUNCHES["centered_clip"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 64])
+def test_every_kernel_past_32_peers_on_card(cuda, n):
+    """The peer-tiled passes: kernels #1-#12 at n = 33 and 64 peers (n
+    partitions, ragged) against their plain versions; the wire kernels
+    give their float32 twins' bits, #9 gives #2/#6's at its rows, and
+    the single-partition kernels #10-#12 give #1/#2/#4's."""
+    from repro_torch.core import compression
+
+    d = n * 301 - 5
+    g, z, v, w = _inputs(n, d, cuda)
+    g[1, :kc.part_len(d, n)] = 0.0  # an all-zero payload
+    taus = [1.0] * 3
+    _check(lambda: kc.butterfly_clip_fused(g, n, taus, z, None, w, v),
+           lambda: kc.butterfly_clip_fused_plain(g, n, taus, z, None, w, v),
+           "butterfly_clip_fused")
+    _check(lambda: kc.verify_tables_batched(g, n, v, z, 1.0),
+           lambda: kc.verify_tables_batched_plain(g, n, v, z, 1.0),
+           "verify_tables_batched")
+    _check(lambda: kc.butterfly_clip_adaptive(g, n, 1.0, 1e-4, 4, w, v),
+           lambda: kc.butterfly_clip_adaptive_plain(g, n, 1.0, 1e-4, 4, w, v),
+           "adaptive_clip_step")
+    _check(lambda: kc.butterfly_clip(g, n, taus, w, v),
+           lambda: kc.butterfly_clip_plain(g, n, taus, w, v),
+           "butterfly_clip")
+    _check(lambda: kc.mean_digest_fused(g, n, z, w),
+           lambda: kc.mean_digest_fused_plain(g, n, z, w),
+           "mean_digest_fused")
+    _check(lambda: kc.digest_tables_batched(g, n, v, z),
+           lambda: kc.digest_tables_batched_plain(g, n, v, z),
+           "digest_tables_batched")
+    for codec in ("int8", "bf16"):
+        q, sc = _wire(g, n, codec)
+        xd = compression.wire_grads(g, codec, n)
+        _check(lambda: kc.butterfly_clip_fused_dequant(q, sc, n, taus, z,
+                                                       None, w, v),
+               lambda: kc.butterfly_clip_fused_dequant_plain(
+                   q, sc, n, taus, z, None, w, v),
+               "butterfly_clip_fused_dequant")
+        _check(lambda: kc.mean_digest_fused_dequant(q, sc, n, z, w),
+               lambda: kc.mean_digest_fused_dequant_plain(q, sc, n, z, w),
+               "mean_digest_fused_dequant")
+        a = kc.butterfly_clip_fused_dequant(q, sc, n, taus, z, None, w, v)
+        b = kc.butterfly_clip_fused(xd, n, taus, z, None, w, v)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), codec
+        a = kc.mean_digest_fused_dequant(q, sc, n, z, w)
+        b = kc.mean_digest_fused(xd, n, z, w)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), codec
+    rows = [n - 1, 0, 2]
+    for tau in (0.0, 1.0):
+        _check(lambda: kc.digest_tables_rows(g, n, v, z, rows, tau),
+               lambda: kc.digest_tables_rows_plain(g, n, v, z, rows, tau),
+               "digest_tables_rows")
+    s, norms = kc.digest_tables_rows(g, n, v, z, rows, 1.0)
+    fs, fn = kc.verify_tables_batched(g, n, v, z, 1.0)
+    assert torch.equal(s, fs[rows]) and torch.equal(norms, fn[rows])
+    part = kc.part_len(d, n)
+    xs = g[:, :part].contiguous()
+    _check(lambda: kc.centered_clip_fused(xs, taus, z[0], None, w, v[0]),
+           lambda: kc.centered_clip_fused_plain(xs, taus, z[0], None, w,
+                                                v[0]),
+           "centered_clip_fused")
+    _check(lambda: kc.verify_tables(xs, v[0], z[0], 1.0),
+           lambda: kc.verify_tables_plain(xs, v[0], z[0], 1.0),
+           "verify_tables")
+    _check(lambda: kc.centered_clip(xs, taus, w, v[0]),
+           lambda: kc.centered_clip_plain(xs, taus, w, v[0]),
+           "centered_clip")
+    a = kc.centered_clip_fused(xs, taus, z[0], None, w, v[0])
+    b = kc.butterfly_clip_fused(xs, 1, taus, z[:1], None, w, v[:1])
+    assert all(torch.equal(x, y[0]) for x, y in zip(a, b))
+    assert torch.equal(kc.centered_clip(xs, taus, w, v[0]),
+                       kc.butterfly_clip(xs, 1, taus, w, v[:1])[0])

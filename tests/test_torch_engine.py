@@ -44,10 +44,24 @@ ATTACKS = {
 }
 
 
+# attack and engine switches outside the grid above: (attack, engine kw)
+SWITCHES = {
+    "false_accuse": (dict(kind="sign_flip", false_accuse=True), {}),
+    "mprng_abort": (dict(kind="sign_flip", mprng_abort=True), {}),
+    "misreport_off": (dict(kind="none", aggregator_attack=True,
+                           aggregator_scale=5.0, misreport_s=False), {}),
+    "end_step": (dict(kind="sign_flip", end_step=2), {}),
+    "clip_lambda": (dict(kind="sign_flip"), {"clip_lambda": 0.5}),
+}
+
+
 def _configs(attack, spec, **kw):
-    common = dict(tau=1.0, clip_iters=20, m_validators=2, **SPECS[spec], **kw)
-    jcfg = jeng.config_from_attack(N, D, JAttack(**ATTACKS[attack]), **common)
-    tcfg = teng.config_from_attack(N, D, TAttack(**ATTACKS[attack]), **common)
+    attack, extra = (ATTACKS[attack], {}) if attack in ATTACKS \
+        else SWITCHES[attack]
+    common = dict(tau=1.0, clip_iters=20, m_validators=2, **SPECS[spec],
+                  **extra, **kw)
+    jcfg = jeng.config_from_attack(N, D, JAttack(**attack), **common)
+    tcfg = teng.config_from_attack(N, D, TAttack(**attack), **common)
     return jcfg, tcfg
 
 
@@ -109,8 +123,11 @@ def _linear_problem(steps):
     return X, y
 
 
-@pytest.mark.parametrize("spec", list(SPECS))
-@pytest.mark.parametrize("attack", ["sign_flip", "alie", "aggregator"])
+@pytest.mark.parametrize(
+    "attack, spec",
+    [(a, s) for s in SPECS for a in ("sign_flip", "alie", "aggregator")]
+    # each switch on the flagship and on one verified:* spec
+    + [(a, s) for s in ("fixed", "verified_mean") for a in SWITCHES])
 def test_scanned_steps_ban_steps_equal_jax(attack, spec):
     steps = 5
     X, y = _linear_problem(steps)
@@ -156,11 +173,11 @@ def test_scanned_steps_ban_steps_equal_jax(attack, spec):
 
 
 def test_engine_config_rejects_unported_branches():
-    """The branches this port still lacks raise, naming their ROADMAP
-    item: elastic membership and the full-vector baselines. Hierarchical
-    groups and sampled audits are ported and validated as in JAX: a bad
-    audit_k or a group count that does not split n into groups of >= 2
-    raises ValueError."""
+    """The branch this port still lacks raises, naming its ROADMAP item:
+    elastic membership. The full-vector baselines are ported and resolve
+    to non-verifiable specs, as in JAX. Hierarchical groups and sampled
+    audits are ported and validated as in JAX: a bad audit_k or a group
+    count that does not split n into groups of >= 2 raises ValueError."""
     with pytest.raises(NotImplementedError, match="item 11"):
         teng.EngineConfig(n=4, d=8, n_events=2)
     for kw in (dict(audit_k=0), dict(groups=3)):
@@ -171,8 +188,10 @@ def test_engine_config_rejects_unported_branches():
     for kw in (dict(groups=2), dict(audit_k=1), dict(groups=2, audit_k=1)):
         assert teng.EngineConfig(n=4, d=8, **kw).audit_k == kw.get("audit_k")
     for name in ("krum", "geometric_median", "centered_clip"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            teng.EngineConfig(n=4, d=8, aggregator=name).agg_spec()
+        t = teng.EngineConfig(n=4, d=8, aggregator=name).agg_spec()
+        j = jeng.EngineConfig(n=4, d=8, aggregator=name).agg_spec()
+        assert t.canonical() == j.canonical() and t.name == name
+        assert not t.verifiable and not j.verifiable
 
 
 @pytest.mark.parametrize("spec", [s for s in SPECS if s != "adaptive_warm"])

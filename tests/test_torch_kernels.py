@@ -254,12 +254,16 @@ def test_clip_aggregate_branches_match_jax(with_z, adaptive_tol):
 
 def test_wrappers_refuse_other_devices_and_shapes():
     """Dispatch is by device only: a tensor that is neither CPU nor CUDA is
-    refused, and so is a peer count the kernels do not take."""
+    refused; the kernels' stack validation takes any peer count (a
+    64-peer stack passes, above the 32 of a register tile) and refuses a
+    stack with no peer."""
     G, z, _, _ = _inputs()
     meta = torch.empty((N, D), device="meta")
     with pytest.raises(ValueError):
         tkc.verify_tables_batched(meta, N, _t(z), _t(z), 1.0)
-    assert tkc.MAX_PEERS >= 16
+    assert tkc._Stack.check(torch.empty((64, D), device="meta")) is None
+    with pytest.raises(ValueError, match="peer"):
+        tkc._Stack.check(torch.empty((0, D), device="meta"))
 
 
 # ---------------------------------------------------------------------------

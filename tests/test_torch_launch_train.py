@@ -289,6 +289,22 @@ def test_cli_baseline_defense_runs(capsys):
         summary["final_loss"])
 
 
+@pytest.mark.parametrize("aggregator", ["krum", "geometric_median",
+                                        "centered_clip"])
+def test_cli_full_vector_baselines_run(capsys, aggregator):
+    """The §4.1 full-vector baselines on the launch path: every rank
+    all_gathers the (n, d) stack and applies the spec, with no tables and
+    no bans; the sign-flip attacker's gradient stays out of Krum's pick
+    and the loss stays finite."""
+    ttrain.main(BASE[:-2] + ["--timeout", "60", "--steps", "2",
+                             "--aggregator", aggregator])
+    out = capsys.readouterr().out
+    summary = json.loads(out.splitlines()[-1].removeprefix("SUMMARY "))
+    assert summary["banned_slots"] == [] and np.isfinite(
+        summary["final_loss"])
+    assert summary["steps_done"] == 2
+
+
 DIST_CODE = r"""
 import subprocess, sys
 argv = sys.argv[1:]
@@ -342,7 +358,7 @@ def test_dist_backend_over_gloo_gives_the_local_backends_numbers(tmp_path,
     (["--resume"], "item 12"),
     (["--halt-at", "3"], "item 12"),
     (["--checkpoint", "ck.msgpack"], "item 12"),
-    (["--aggregator", "krum"], "item 4"),
+    (["--mesh", "2x2"], "item 14"),
 ])
 def test_flags_of_later_items_raise_naming_the_item(extra, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -86,16 +86,18 @@ def test_verified_grammar_round_trips_like_jax(text):
 
 
 def test_registry_and_combinators_like_jax():
-    ported = {n for n in jagg.REGISTRY
-              if n.split(":")[-1] not in tagg._NOT_PORTED}
-    assert set(tagg.REGISTRY) == ported
+    assert set(tagg.REGISTRY) == set(jagg.REGISTRY)
     for name in ("mean", "trimmed_mean", "coordinate_median",
                  "butterfly_clip"):
         assert tverif.verified(name).canonical() == \
             jverif.verified(name).canonical()
+    # the full-vector baselines are ported; like JAX's, the verified:
+    # wrapper refuses them (no per-partition contributions to digest)
     for name in ("krum", "geometric_median", "centered_clip"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tagg.AggregatorSpec.parse(name)
+        assert tagg.AggregatorSpec.parse(name).canonical() == name
+        for verified in (tverif.verified, jverif.verified):
+            with pytest.raises(ValueError, match="not coordinatewise"):
+                verified(name)
     # owner_aggregate, once a stub naming item 14, is the launch owner's
     # one-partition aggregation now (tests/test_torch_launch_stage.py)
     stack = torch.arange(12.0).reshape(3, 4)
