@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --breakdown   # phases 1 and 2b only
 
 Phases, each printing its own line:
   1. the card (name and power limit from nvidia-smi) and the build of the
      CUDA kernels from ``src/repro_torch/kernels/csrc``, with its time;
+     the float32 passes' registers, local (spill) bytes and resident CTAs
+     per SM;
   2. every kernel against its plain PyTorch version on the card, at the
      slice's shapes (4 peers x 4 partitions of full-width ALBERT-large), two
      ragged small shapes and two past 32 peers (33 and 64 peers, d = 2^20
@@ -20,6 +23,12 @@ Phases, each printing its own line:
      partitions) gives the bits of #2 (tau > 0) or #6 (tau = 0) at the
      sampled rows; #12 over each whole (n, d) stack with a warm start,
      float32 (timed at the full-width (4, d)) and bfloat16;
+     and the streaming-read yardstick, torch.sum(0) over the (4, d) stack
+     and the (4, d/4) owner stack;
+     2b. with ``--breakdown`` only, in place of every other phase: the
+     fused clip's passes one by one, #1 at the (4, d) stack and #10 at
+     the (4, d/4) owner stack, each pass and each finish timed on its own
+     with CUDA events, and the yardstick;
   3. the main path: ``repro_torch.launch.train_byzantine`` on full-width
      ALBERT-large (bf16 storage, d = 78,223,360), 4 peers, one sign-flip
      attacker, 2 validators, 5 clip iterations, seq 128, batch 4, 6 steps;
@@ -50,7 +59,8 @@ Phases, each printing its own line:
   6. the §4.1 full-vector baselines at full width through
      ``train_byzantine --defense centered_clip|krum|geometric_median``, 3
      steps each: finite gradient norms, no ban, no kernel launched (a
-     non-verifiable spec draws no z and builds no tables);
+     non-verifiable spec draws no z and builds no tables), and the seconds
+     by part of one more step;
   7. the Fig. 9 sweep, ``repro_torch.launch.clip_iters`` at d =
      78,223,360 (16 peers, 3 attackers at -10 mu): its lines, every fixed
      budget through #12 (``clip_iters.KERNEL_CALLS`` launches), the runs to
@@ -194,8 +204,8 @@ def kernel_cases(grads, n_parts, tau, weights, gen):
     output once; moved bytes are what the kernels' passes read and write
     per call at CLIP_ITERS iterations: the stack once per pass, v (or agg)
     read in every pass and written in every update, z in the table pass,
-    and the copy of v0 that each wrapper starts from (partial-sum buffers
-    left out)."""
+    and the copy of v0 that the adaptive loop starts from (the fixed
+    budgets read v0 in place; partial-sum buffers left out)."""
     from repro_torch.kernels import centered_clip as kc
 
     n, d = grads.shape
@@ -216,7 +226,7 @@ def kernel_cases(grads, n_parts, tau, weights, gen):
          lambda: kc.butterfly_clip_fused_plain(grads, n_parts, taus, z, None,
                                                weights, v0),
          (nd + 3 * pd) * 4 + tbl, nd * (6 * it + 6),
-         ((it + 2) * nd + (2 + 1 + 2 * it + 2) * pd) * 4 + tbl),
+         ((it + 2) * nd + (1 + 2 * it + 2) * pd) * 4 + tbl),
         ("verify_tables_batched",
          lambda: kc.verify_tables_batched(grads, n_parts, agg, z, tau),
          lambda: kc.verify_tables_batched_plain(grads, n_parts, agg, z, tau),
@@ -233,8 +243,7 @@ def kernel_cases(grads, n_parts, tau, weights, gen):
         ("butterfly_clip",
          lambda: kc.butterfly_clip(grads, n_parts, taus, weights, v0),
          lambda: kc.butterfly_clip_plain(grads, n_parts, taus, weights, v0),
-         (nd + 2 * pd) * 4, nd * 7 * it,
-         (2 * it * nd + (2 + 3 * it) * pd) * 4),
+         (nd + 2 * pd) * 4, nd * 7 * it, (2 * it * nd + 3 * it * pd) * 4),
     ]
 
 
@@ -282,7 +291,7 @@ def digest_and_wire_cases(grads, n_parts, tau, weights, gen):
              lambda q=q, sc=sc: kc.butterfly_clip_fused_dequant_plain(
                  q, sc, n_parts, taus, z, None, weights, v0),
              wire + 3 * pd * 4 + tbl, nd * (7 * it + 8),
-             (it + 2) * wire + (2 * it + 5) * pd * 4 + tbl,
+             (it + 2) * wire + (2 * it + 3) * pd * 4 + tbl,
              lambda xd=xd: kc.butterfly_clip_fused(xd, n_parts, taus, z,
                                                    None, weights, v0)),
             ("mean_digest_fused_dequant", codec,
@@ -358,7 +367,7 @@ def launch_cases(grads, n_parts, tau, weights, gen):
          lambda: kc.centered_clip_fused_plain(xs, taus, z, None, weights,
                                               v0),
          (nd + 3 * part) * 4 + tbl, nd * (6 * it + 6),
-         ((it + 2) * nd + (2 + 1 + 2 * it + 2) * part) * 4 + tbl),
+         ((it + 2) * nd + (1 + 2 * it + 2) * part) * 4 + tbl),
         ("verify_tables",
          lambda: kc.verify_tables(xs, agg, z, tau),
          lambda: kc.verify_tables_plain(xs, agg, z, tau),
@@ -383,12 +392,11 @@ def clip_cases(grads, tau, weights, gen):
         ("centered_clip", "f32",
          lambda: kc.centered_clip(grads, taus, weights, v0),
          lambda: kc.centered_clip_plain(grads, taus, weights, v0),
-         (nd + 2 * d) * 4, nd * 7 * it, (2 * it * nd + (2 + 3 * it) * d) * 4),
+         (nd + 2 * d) * 4, nd * 7 * it, (2 * it * nd + 3 * it * d) * 4),
         ("centered_clip", "bf16",
          lambda: kc.centered_clip(xb, taus, weights, v0),
          lambda: kc.centered_clip_plain(xb, taus, weights, v0),
-         nd * 2 + 2 * d * 4, nd * 7 * it,
-         2 * it * nd * 2 + (2 + 3 * it) * d * 4),
+         nd * 2 + 2 * d * 4, nd * 7 * it, 2 * it * nd * 2 + 3 * it * d * 4),
     ]
 
 
@@ -480,6 +488,9 @@ def phase_kernels(dev):
         # an all-zero payload; timed at the sampled flagship's tau = 1
         rows = [n_parts - 1, 1] if d == D_FULL else [n_parts - 1, 0, 2]
         part = kc.part_len(d, n_parts)
+        if d == D_FULL:
+            yardstick((("(4, d)", grads),
+                       ("(4, d/4) owner", grads[:, :part].contiguous())))
         zero_payload[1, rows[-1] * part:(rows[-1] + 1) * part] = 0.0
         for tau, kern, plain, nbytes, ops, moved, twin in rows_cases(
                 zero_payload, n_parts, rows, gen):
@@ -509,6 +520,150 @@ def phase_kernels(dev):
           "bf16 stacks)", flush=True)
     kc.reset_launch_counts()
     return stats
+
+
+# ---------------------------------------------------------------------------
+# Diagnostics of the fused clip (#1, #10): the passes' resources and times
+# ---------------------------------------------------------------------------
+# cc_pass_info's codes (csrc/centered_clip.cu)
+PASS_INFO = ((0, "sq pass"), (1, "update with norms"), (2, "dot pass"),
+             (3, "dot pass with norms"), (4, "mean pass"),
+             (5, "finish weights"), (6, "finish tables"), (7, "update"),
+             (8, "update with norms and dv"))
+
+
+def print_pass_info():
+    """Registers, local (spill) bytes and resident CTAs per SM of the
+    float32 passes, as the build made them: n = 4 with and without the
+    16-byte loads (the fused clip's main-path instantiation is n = 4 with
+    them), n = 8 with them, n = 16 (groups of one column)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    lib = build.load("centered_clip")
+    out = (ctypes.c_int * 3)()
+    for n, vec in ((4, 1), (4, 0), (8, 1), (16, 0)):
+        parts = []
+        for code, what in PASS_INFO:
+            if code in (5, 6) and (n, vec) != (4, 1):
+                continue  # the finishes do not depend on n
+            check(lib.cc_pass_info(code, n, vec, out) == 0,
+                  f"pass info of {what} at n={n}")
+            parts.append(f"{what} {out[0]} regs, {out[1]} local bytes, "
+                         f"{out[2]} CTAs/SM")
+        print(f"phase 1: float32 passes at n={n} vec={vec}: "
+              + "; ".join(parts), flush=True)
+
+
+class _Timed:
+    """Stands in for a built library: every launcher call is bracketed by
+    CUDA events, recorded as (function, start, end) in ``log``."""
+
+    def __init__(self, lib, log):
+        self.lib, self.log = lib, log
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def launch(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = fn(*args)
+            end.record()
+            self.log.append((name.split("_", 1)[1], start, end))
+            return rc
+        return launch
+
+
+def yardstick(stacks):
+    """The streaming-read rate of the card: torch.sum(0) over each
+    (label, float32 stack), a memory rate printed beside the kernels and
+    not a counterpart of any."""
+    for label, xs in stacks:
+        t = time_ms(lambda xs=xs: xs.sum(0))
+        nbytes = (xs.numel() + xs.shape[1]) * 4
+        print(f"phase 2 yardstick: torch.sum(0) over the {label} float32 "
+              f"stack {t:.3f} ms, {nbytes / t / 1e9:.3f} TB/s (reads the "
+              "stack once, writes one row)", flush=True)
+
+
+def pass_breakdown(dev):
+    """#1 at the (4, d) stack (4 partitions) and #10 at one launch owner's
+    (4, d/4) stack, 5 iterations at tau 1 with a warm start, through the
+    public wrappers with the libraries behind a timing stand-in: every
+    pass and every finish timed on its own with CUDA events around its
+    launch, median over 3 calls after one warm-up; every call's output
+    held against the plain version. Then the streaming-read yardstick."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import centered_clip as kc
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    n, P = 4, 4
+    grads = stack(n, D_FULL, gen, dev)
+    part = kc.part_len(D_FULL, P)
+    owner = grads[:, :part].contiguous()
+    taus = [1.0] * CLIP_ITERS
+    z = torch.randn((P, part), generator=gen, device=dev)
+    z = z / torch.linalg.vector_norm(z, dim=1, keepdim=True)
+    v0 = (0.1 / math.sqrt(part)) * torch.randn((P, part), generator=gen,
+                                               device=dev)
+    cases = [("butterfly_clip_fused", "#1", grads, P,
+              lambda: kc.butterfly_clip_fused(grads, P, taus, z, None, None,
+                                              v0),
+              lambda: kc.butterfly_clip_fused_plain(grads, P, taus, z, None,
+                                                    None, v0)),
+             ("centered_clip_fused", "#10", owner, 1,
+              lambda: kc.centered_clip_fused(owner, taus, z[0], None, None,
+                                             v0[0]),
+              lambda: kc.centered_clip_fused_plain(owner, taus, z[0], None,
+                                                   None, v0[0]))]
+    real, log = build.load, []
+    build.load = lambda name="centered_clip": _Timed(real(name), log)
+    try:
+        for name, tag, xs, n_parts, kern, plain in cases:
+            ref = as_tuple(plain())
+            runs, whole = [], []
+            for _ in range(4):
+                log.clear()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = as_tuple(kern())
+                end.record()
+                torch.cuda.synchronize()
+                check(close(out, ref), f"breakdown {tag}: disagrees with "
+                      "plain")
+                runs.append([t0.elapsed_time(t1) for _, t0, t1 in log])
+                whole.append(start.elapsed_time(end))
+            whats = [w for w, _, _ in log]
+            ms = [statistics.median(r[i] for r in runs[1:])
+                  for i in range(len(whats))]
+            geo = kc.chunk_grid(n, xs.shape[1], n_parts)
+            nd, pd = xs.numel() * 4, n_parts * geo.part * 4
+            moved = {"sq_pass": nd + pd, "update": nd + 2 * pd,
+                     "dot_pass": nd + 2 * pd}
+
+            def show(what):
+                t = [m for w, m in zip(whats, ms) if w == what]
+                rate = (f" ({moved[what] / statistics.median(t) / 1e9:.3f}"
+                        " TB/s)" if what in moved else "")
+                return f"{what} {' '.join(f'{x:.3f}' for x in t)} ms" + rate
+
+            print(f"phase 2 breakdown: {name} ({tag}) n={n} "
+                  f"d={xs.shape[1]} P={n_parts} chunk={geo.cs} C={geo.C}: "
+                  + "; ".join(show(w) for w in dict.fromkeys(whats))
+                  + f"; parts sum to {sum(ms):.3f} ms, whole call "
+                  f"{statistics.median(whole[1:]):.3f} ms (events between "
+                  "launches)", flush=True)
+    finally:
+        build.load = real
+        kc.reset_launch_counts()
+    yardstick((("(4, d)", grads), ("(4, d/4) owner", owner)))
+    del grads, owner
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -817,7 +972,15 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
+    import argparse
+
     from repro_torch.kernels import build
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--breakdown", action="store_true",
+                    help="only build, print the passes' resources and run "
+                    "the per-pass breakdown of #1 and #10 and the yardstick")
+    args = ap.parse_args()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -831,6 +994,11 @@ def main():
           f"{[os.path.relpath(p, ROOT) for p in libs.values()]} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
           "parallel)", flush=True)
+    print_pass_info()
+    if args.breakdown:
+        pass_breakdown(dev)
+        print(card)
+        return
 
     stats = phase_kernels(dev)
 
@@ -933,7 +1101,7 @@ def main():
         _, paths[f"baseline_{defense}"] = run_path(
             f"phase 6 (baseline {defense})",
             common + ["--steps", "3", "--defense", defense], launches={},
-            bans=False)
+            bans=False, breakdown=True)
     paths["fig9"] = run_fig9("phase 7 (fig9, d=78223360)", stats)
     # the toy classifier, 7 of the peers sign-flipping from step 10, 60
     # steps of the host loop: btard runs #1 once a step (past 32 peers

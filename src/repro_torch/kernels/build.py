@@ -28,30 +28,32 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 HEADERS = ("centered_clip.cuh",)
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-# the stack arguments of a pass: x, row stride, part, d, n, P
+# the stack arguments of a pass: x, row stride, part, d, n, P; then its
+# chunk grid and load width: cs, C, vec
 _STACK = (_P, _LL, _LL, _LL, _I, _I)
+_GRID = (_LL, _I, _I)
 # C signature of every launcher, per library (all return an int status)
 SIGNATURES = {
     "centered_clip": {
-        "cc_sq_pass": _STACK + (_P, _LL, _I, _P, _P),
-        "cc_update": _STACK + (_P, _P, _P, _LL, _I, _P, _P, _P, _F, _P, _P),
-        "cc_dot_pass": _STACK + (_P, _P, _LL, _I, _P, _P, _P),
-        "cc_rows_dot_pass": _STACK + (_P, _I, _P, _P, _LL, _I, _P, _P, _P),
-        "cc_mean_pass": _STACK + (_P, _LL, _I, _P, _P),
+        "cc_sq_pass": _STACK + _GRID + (_P, _P, _P),
+        "cc_update": _STACK + _GRID + (_P,) * 7 + (_F, _P, _P),
+        "cc_dot_pass": _STACK + _GRID + (_P,) * 5,
+        "cc_rows_dot_pass": _STACK + _GRID + (_P, _I) + (_P,) * 5,
+        "cc_mean_pass": _STACK + _GRID + (_P, _P, _P),
         "cc_finish_weights": (_P, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P,
                               _F, _P),
         "cc_finish_tables": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
         "cc_finish_digests": (_P, _P, _I, _I, _I, _P, _P, _P),
+        "cc_pass_info": (_I, _I, _I, _P),
     },
     # the same passes with the element type and the (P, n) scales in front
     # of the stack: (dtype, x, scales, row stride, part, d, n, P, ...)
     "wire": {
-        "wire_sq_pass": (_I, _P, _P) + _STACK[1:] + (_P, _LL, _I, _P, _P),
-        "wire_update": (_I, _P, _P) + _STACK[1:] + (_P, _P, _P, _LL, _I, _P,
-                                                    _P, _P, _F, _P, _P),
-        "wire_dot_pass": (_I, _P, _P) + _STACK[1:] + (_P, _P, _LL, _I, _P,
-                                                      _P, _P),
-        "wire_mean_pass": (_I, _P, _P) + _STACK[1:] + (_P, _LL, _I, _P, _P),
+        "wire_sq_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P, _P, _P),
+        "wire_update": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 7
+        + (_F, _P, _P),
+        "wire_dot_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 5,
+        "wire_mean_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P, _P, _P),
     },
 }
 

@@ -41,6 +41,16 @@ matrix itself), under their own wrappers, launch counts and plain versions.
 Any peer count n >= 1 is taken: above 32 peers the passes walk the peers
 in tiles of 32 (``csrc/centered_clip.cuh``, "Peer tiles").
 
+Every pass sums over ``chunk_grid(n, d, n_parts)``: chunks of CHUNK
+columns, a constant, so the reduction order and every bit follow from
+(n, d, n_parts) and not from the card the kernels run on. A pass loads 4
+columns of a peer at once (16 bytes of float32) where every row start of
+the stack and of the float32 vectors is aligned, and column by column, in
+the same order, where not: the same stack gives the same bits at any
+storage offset or row stride. The fixed budgets (#1, #4, #7, #10, #12)
+read v0 in place and have their first update write v; the adaptive loop
+(#3) updates a copy in place.
+
 ``LAUNCHES`` counts kernel launches on the card: one per wrapper call, and
 for the adaptive loop one per iteration it runs (its step kernel). The
 launch path runs its peer ranks as threads of one process, so every count
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import math
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -77,10 +88,35 @@ WIRE_DTYPES = {torch.int8: 1, torch.bfloat16: 2}
 # peers a register tile holds (csrc: cc::kTile); above it the update that
 # carries the next norms needs a (P, part) scratch vector
 TILE = 32
-# CTAs per pass, spread over the partitions. A constant, not the card's SM
-# count, so the reduction order (and hence every bit) is the same anywhere.
-TARGET_CTAS = 1024
-THREADS = 256
+# columns a thread takes at a time up to 8 peers, one 16-byte load of
+# float32 per peer where the stack allows it (csrc: cc::group_cols); 1
+# above 8 peers
+GROUP = 4
+# columns of a logical chunk, each the source of one (n,) row of partial
+# sums: a constant, not derived from the card's SM count, so the reduction
+# order (and hence every bit) is the same on any card. A multiple of GROUP.
+CHUNK = 4096
+
+
+class Geometry(NamedTuple):
+    """The logical chunk grid of a pass: partition p of length ``part`` is
+    cut into C chunks of ``cs`` columns, [c*cs, min(part, (c+1)*cs)), and a
+    thread sums ``group`` consecutive columns at a time."""
+
+    part: int
+    cs: int
+    C: int
+    group: int
+
+
+def chunk_grid(n: int, d: int, n_parts: int) -> Geometry:
+    """The chunk grid of every pass over an (n, d) stack read as n_parts
+    partitions: a function of (n, d, n_parts) alone. The kernels sum each
+    chunk in a fixed order and the finish sums the C chunk partials in a
+    fixed tree, so the bits follow from this grid; the number of CTAs that
+    walk it (the card's SM count times the resident CTAs) does not enter."""
+    part = part_len(d, n_parts)
+    return Geometry(part, CHUNK, -(-part // CHUNK), GROUP if n <= 8 else 1)
 
 
 def reset_launch_counts():
@@ -202,12 +238,17 @@ def _check(status: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
 
 
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 class _Stack:
     """Validated kernel arguments for the (n, d) stack read as n_parts
-    partitions, plus the pass geometry (chunk size cs, C chunks). A float32
-    stack runs the passes of ``csrc/centered_clip.cu``; an int8/bf16 wire
-    stack, with its (n_parts, n) f32 ``scales``, those of ``csrc/wire.cu``.
-    The finishing kernels read only partial sums and are the float32
+    partitions, plus the pass geometry (``chunk_grid``: chunk length cs, C
+    chunks a partition). A float32 stack runs the passes of
+    ``csrc/centered_clip.cu``; an int8/bf16 wire stack, with its
+    (n_parts, n) f32 ``scales``, those of ``csrc/wire.cu``. The finishing
+    kernels read only partial sums, (rows, n, C), and are the float32
     library's either way."""
 
     @staticmethod
@@ -236,15 +277,18 @@ class _Stack:
         self.n, self.d = grads.shape
         self.P = int(n_parts)
         self._scratch = None
-        self.part = part_len(self.d, self.P)
+        self.part, self.cs, self.C, group = chunk_grid(self.n, self.d, self.P)
         self.device = grads.device
         self.grads = grads
-        c = max(1, min(-(-self.part // THREADS), -(-TARGET_CTAS // self.P)))
-        self.cs = -(-self.part // c)
-        self.C = -(-self.part // self.cs)
+        ld = grads.stride(0)
+        # 16-byte loads: every (peer, partition) row start aligned to a
+        # group of 4 elements (16 bytes of float32, 4 of int8, 8 of bf16)
+        self.vec = (group == GROUP and ld % GROUP == 0
+                    and self.part % GROUP == 0
+                    and grads.data_ptr() % (GROUP * grads.element_size()) == 0)
         self.lib = build.load("centered_clip")
-        self.stream = torch.cuda.current_stream(self.device).cuda_stream
-        stack = (grads.stride(0), self.part, self.d, self.n, self.P)
+        self.stream = _stream(self.device)
+        stack = (ld, self.part, self.d, self.n, self.P, self.cs, self.C)
         if wire is None:
             self.passes, self.prefix = self.lib, "cc_"
             self.args = (grads.data_ptr(), *stack)
@@ -254,9 +298,18 @@ class _Stack:
             self.args = (wire, grads.data_ptr(), self.scales.data_ptr(),
                          *stack)
 
-    def _pass(self, name, *args):
-        fn = getattr(self.passes, self.prefix + name)
-        _check(fn(*self.args, *args, self.stream), f"{name} ({self.prefix})")
+    def _call(self, what, fn, *args):
+        _check(fn(*args, self.stream), what)
+
+    def _pass(self, name, vectors, *args):
+        """Launch pass ``name``, with 16-byte loads when the stack and every
+        float32 vector it reads or writes (``vectors``; None for a zero
+        vector that is not read) start 16-byte aligned."""
+        vec = self.vec and all(t is None or t.data_ptr() % 16 == 0
+                               for t in vectors)
+        self._call(f"{name} ({self.prefix})",
+                   getattr(self.passes, self.prefix + name), *self.args,
+                   int(vec), *args)
 
     def f32(self, t, shape, name):
         t = t.to(device=self.device, dtype=torch.float32).contiguous()
@@ -268,62 +321,74 @@ class _Stack:
     def empty(self, *shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=self.device)
 
+    def partials(self, rows=None):
+        """A (rows, n, C) buffer of per-chunk partial sums (rows = P)."""
+        return self.empty(self.P if rows is None else rows, self.n, self.C)
+
     def weights(self, weights):
         if weights is None:
             return torch.ones((self.n,), dtype=torch.float32,
                               device=self.device)
         return self.f32(weights, (self.n,), "weights")
 
+    def vector(self, v, name="v0"):
+        """None, or ``v`` checked as a (P, part) float32 vector, read in
+        place (the passes that take it do not write it)."""
+        return None if v is None else self.f32(v, (self.P, self.part), name)
+
     def start(self, v0):
+        """A (P, part) vector to update in place: zeros, or a copy of v0."""
         if v0 is None:
             return torch.zeros((self.P, self.part), dtype=torch.float32,
                                device=self.device)
-        return self.f32(v0, (self.P, self.part), "v0").clone()
+        return self.vector(v0).clone()
 
     def sq_pass(self, v, sq_part):
-        self._pass("sq_pass", _ptr(v), self.cs, self.C, _ptr(sq_part))
+        self._pass("sq_pass", (v,), _ptr(v), _ptr(sq_part))
 
-    def update(self, v, cw, wsum, sq_part=None, d2_part=None, d2=None,
-               tol2=0.0):
+    def update(self, vin, vout, cw, wsum, sq_part=None, d2_part=None,
+               d2=None, tol2=0.0):
+        """One iteration from ``vin`` (None: zeros) into ``vout`` (may be
+        ``vin``: in place; the adaptive step, with d2, runs in place)."""
         if sq_part is not None and self.n > TILE and self._scratch is None:
             # the peer-tiled update keeps each column's update here between
             # its two sweeps; one buffer per stack, reused by every iteration
             self._scratch = self.empty(self.P, self.part)
         scratch = self._scratch if sq_part is not None else None
-        self._pass("update", _ptr(v), _ptr(cw), _ptr(wsum), self.cs, self.C,
-                   _ptr(sq_part), _ptr(d2_part), _ptr(d2), tol2,
+        self._pass("update", (vin, vout), _ptr(vin), _ptr(vout), _ptr(cw),
+                   _ptr(wsum), _ptr(sq_part), _ptr(d2_part), _ptr(d2), tol2,
                    _ptr(scratch))
 
     def dot_pass(self, v, z, dot_part, sq_part=None):
-        self._pass("dot_pass", _ptr(v), _ptr(z), self.cs, self.C,
-                   _ptr(dot_part), _ptr(sq_part))
+        self._pass("dot_pass", (v, z), _ptr(v), _ptr(z), _ptr(dot_part),
+                   _ptr(sq_part))
 
     def rows_dot_pass(self, rows, v, z, dot_part, sq_part):
-        self._pass("rows_dot_pass", _ptr(rows), rows.shape[0], _ptr(v),
-                   _ptr(z), self.cs, self.C, _ptr(dot_part), _ptr(sq_part))
+        self._pass("rows_dot_pass", (v, z), _ptr(rows), rows.shape[0],
+                   _ptr(v), _ptr(z), _ptr(dot_part), _ptr(sq_part))
 
     def mean_pass(self, w, v):
-        self._pass("mean_pass", _ptr(w), self.cs, self.C, _ptr(v))
+        self._pass("mean_pass", (v,), _ptr(w), _ptr(v))
 
     def finish_weights(self, sq_part, w, tau, sq, cw, wsum=None,
                        d2_part=None, d2=None, iters=None, tol2=0.0):
-        _check(self.lib.cc_finish_weights(
-            _ptr(sq_part), self.P, self.C, self.n, _ptr(w), float(tau),
-            _ptr(sq), _ptr(cw), _ptr(wsum), _ptr(d2_part), _ptr(d2),
-            _ptr(iters), tol2, self.stream), "finish weights")
+        self._call("finish weights", self.lib.cc_finish_weights,
+                   _ptr(sq_part), self.P, self.C, self.n, _ptr(w),
+                   float(tau), _ptr(sq), _ptr(cw), _ptr(wsum),
+                   _ptr(d2_part), _ptr(d2), _ptr(iters), tol2)
 
     def finish_tables(self, dot_part, tau, s, norms, sq_part=None,
                       sq_in=None):
         # one CTA per row of the partials: P partitions, or k sampled ones
-        _check(self.lib.cc_finish_tables(
-            _ptr(dot_part), _ptr(sq_part), _ptr(sq_in), dot_part.shape[0],
-            self.C, self.n, float(tau), _ptr(s), _ptr(norms), self.stream),
-            "finish tables")
+        self._call("finish tables", self.lib.cc_finish_tables,
+                   _ptr(dot_part), _ptr(sq_part), _ptr(sq_in),
+                   dot_part.shape[0], self.C, self.n, float(tau), _ptr(s),
+                   _ptr(norms))
 
     def finish_digests(self, dot_part, sq_part, s, norms):
-        _check(self.lib.cc_finish_digests(
-            _ptr(dot_part), _ptr(sq_part), dot_part.shape[0], self.C,
-            self.n, _ptr(s), _ptr(norms), self.stream), "finish digests")
+        self._call("finish digests", self.lib.cc_finish_digests,
+                   _ptr(dot_part), _ptr(sq_part), dot_part.shape[0], self.C,
+                   self.n, _ptr(s), _ptr(norms))
 
 
 def _rows(rows, n_parts, device):
@@ -351,15 +416,18 @@ def _on_cuda(grads) -> bool:
 def _fused_clip(k, taus, z, tau_v, weights, v0):
     """The passes of the fused kernel over a validated stack ``k``:
     a norm prologue, len(taus) updates carrying the next norms, the table
-    epilogue. Returns (v, s, norms)."""
-    w, v = k.weights(weights), k.start(v0)
+    epilogue. v0 is read in place (None: zeros, read from nothing) and the
+    first update writes v, so no pass copies or fills a vector.
+    Returns (v, s, norms)."""
+    w, v0 = k.weights(weights), k.vector(v0)
     z = k.f32(z, (k.P, k.part), "z")
-    sq_part, dot_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
+    sq_part, dot_part = k.partials(), k.partials()
     sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
-    k.sq_pass(v, sq_part)  # prologue: ||x_i - v0||^2
+    k.sq_pass(v0, sq_part)  # prologue: ||x_i - v0||^2
     k.finish_weights(sq_part, w, taus[0] if taus else tau_v, sq, cw, wsum)
+    v = k.empty(k.P, k.part) if taus else k.start(v0)
     for it, tau in enumerate(taus):
-        k.update(v, cw, wsum, sq_part=sq_part)
+        k.update(v0 if it == 0 else v, v, cw, wsum, sq_part=sq_part)
         k.finish_weights(sq_part, w, taus[min(it + 1, len(taus) - 1)], sq,
                          cw)
     s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
@@ -422,7 +490,7 @@ def verify_tables(xs, v, z, tau):
         return verify_tables_plain(xs, v, z, tau)
     k = _one_partition(xs, v)
     v, z = k.f32(v[None], (1, k.part), "v"), k.f32(z[None], (1, k.part), "z")
-    dot_part, sq_part = k.empty(1, k.C, k.n), k.empty(1, k.C, k.n)
+    dot_part, sq_part = k.partials(), k.partials()
     s, norms = k.empty(1, k.n), k.empty(1, k.n)
     k.dot_pass(v, z, dot_part, sq_part=sq_part)
     k.finish_tables(dot_part, tau, s, norms, sq_part=sq_part)
@@ -456,7 +524,7 @@ def verify_tables_batched(grads, n_parts, agg, z, tau):
     k = _Stack(grads, n_parts)
     agg = k.f32(agg, (k.P, k.part), "agg")
     z = k.f32(z, (k.P, k.part), "z")
-    dot_part, sq_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
+    dot_part, sq_part = k.partials(), k.partials()
     s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
     k.dot_pass(agg, z, dot_part, sq_part=sq_part)
     k.finish_tables(dot_part, tau, s, norms, sq_part=sq_part)
@@ -476,7 +544,7 @@ def butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
                                              max_iters, weights, v0)
     k = _Stack(grads, n_parts)
     w, v = k.weights(weights), k.start(v0)
-    sq_part, d2_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C)
+    sq_part, d2_part = k.partials(), k.empty(k.P, k.C)
     sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
     tol2 = float(np.float32(tol) ** 2)
     d2 = torch.full((k.P,), math.inf, device=k.device)
@@ -486,7 +554,7 @@ def butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
     for _ in range(max_iters):
         if not bool((d2 > tol2).any()):
             break
-        k.update(v, cw, wsum, sq_part=sq_part, d2_part=d2_part, d2=d2,
+        k.update(v, v, cw, wsum, sq_part=sq_part, d2_part=d2_part, d2=d2,
                  tol2=tol2)
         k.finish_weights(sq_part, w, tau, sq, cw, d2_part=d2_part, d2=d2,
                          iters=iters, tol2=tol2)
@@ -497,14 +565,17 @@ def butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
 def _two_pass_clip(k, taus, weights, v0):
     """The passes of the two-phase kernel over a validated stack ``k``: per
     iteration a norm pass (norms recomputed from x, clip weights at that
-    iteration's tau) and an update pass. Returns v (k.P, k.part)."""
-    w, v = k.weights(weights), k.start(v0)
-    sq_part = k.empty(k.P, k.C, k.n)
+    iteration's tau) and an update pass. v0 is read in place (None:
+    zeros) and the first update writes v. Returns v (k.P, k.part)."""
+    w, v0 = k.weights(weights), k.vector(v0)
+    sq_part = k.partials()
     sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
+    v = k.empty(k.P, k.part) if taus else k.start(v0)
     for it, tau in enumerate(taus):
-        k.sq_pass(v, sq_part)
+        vin = v0 if it == 0 else v
+        k.sq_pass(vin, sq_part)
         k.finish_weights(sq_part, w, tau, sq, cw, wsum if it == 0 else None)
-        k.update(v, cw, wsum)
+        k.update(vin, v, cw, wsum)
     return v
 
 
@@ -554,7 +625,7 @@ def digest_tables_batched(grads, n_parts, agg, z):
     k = _Stack(grads, n_parts)
     agg = k.f32(agg, (k.P, k.part), "agg")
     z = k.f32(z, (k.P, k.part), "z")
-    dot_part, sq_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
+    dot_part, sq_part = k.partials(), k.partials()
     s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
     k.dot_pass(agg, z, dot_part, sq_part=sq_part)
     k.finish_digests(dot_part, sq_part, s, norms)
@@ -568,7 +639,7 @@ def _mean_digest(k, z, weights):
     w = k.weights(weights)
     z = k.f32(z, (k.P, k.part), "z")
     v = k.empty(k.P, k.part)
-    dot_part, sq_part = k.empty(k.P, k.C, k.n), k.empty(k.P, k.C, k.n)
+    dot_part, sq_part = k.partials(), k.partials()
     s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
     k.mean_pass(w, v)
     k.dot_pass(v, z, dot_part, sq_part=sq_part)
@@ -616,8 +687,7 @@ def digest_tables_rows(grads, n_parts, agg, z, rows, tau):
     agg = k.f32(agg, (k.P, k.part), "agg")
     z = k.f32(z, (k.P, k.part), "z")
     n_rows = rows.shape[0]
-    dot_part = k.empty(n_rows, k.C, k.n)
-    sq_part = k.empty(n_rows, k.C, k.n)
+    dot_part, sq_part = k.partials(n_rows), k.partials(n_rows)
     s, norms = k.empty(n_rows, k.n), k.empty(n_rows, k.n)
     k.rows_dot_pass(rows, agg, z, dot_part, sq_part)
     if float(tau) > 0:

@@ -30,8 +30,8 @@
 //       butterfly_clip_pallas at P = 1 (a bf16 stack runs wire.cu's passes
 //       with unit scales, an exact widening).
 // The three single-partition kernels read one contiguous (n, part)
-// matrix, so the partition count is 1 and every pass spreads its CTAs
-// over chunks of that one partition. Like the batched passes they are
+// matrix, so the partition count is 1 and every pass walks the chunks of
+// that one partition. Like the batched passes they are
 // bound by bytes (a few float32 operations per element read): the design
 // reads the stack once per pass, n_iters + 2 passes for the fused clip,
 // one for the tables and 2 n_iters for the two-phase clip.
@@ -45,50 +45,63 @@ using cc::kThreads;
 // ---------------------------------------------------------------------------
 // Plain C launchers (loaded with ctypes). Each enqueues on `stream`, does not
 // synchronise, allocates nothing, and returns cudaGetLastError() (0 = ok).
-// Any peer count n >= 1: above 32 the passes walk the peers in tiles.
+// Every pass takes the stack (x, ld, part, d, n, P), its logical chunk grid
+// (cs columns a chunk, C chunks a partition; kernels/centered_clip.py
+// chunk_grid) and `vec`: 1 when every (peer, partition) row start of the
+// stack and of each float32 vector it reads or writes is 16-byte aligned
+// (the 16-byte loads), 0 otherwise (the same sums, loaded column by
+// column). Any peer count n >= 1: above 32 the passes walk the peers in
+// tiles. A null v in a pass that reads v reads zeros.
 // ---------------------------------------------------------------------------
 extern "C" int cc_sq_pass(const float* x, long long ld, long long part,
-                          long long d, int n, int P, const float* v,
-                          long long cs, int C, float* sq_part, void* stream) {
+                          long long d, int n, int P, long long cs, int C,
+                          int vec, const float* v, float* sq_part,
+                          void* stream) {
   const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
-  const dim3 grid(C, P);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(N) \
-  cc::sq_pass_kernel<N, 0><<<grid, kThreads, 0, st>>>(s, v, cs, sq_part)
-  CC_DISPATCH_PEERS(n, LAUNCH);
+  const long long chunks = static_cast<long long>(P) * C;
+#define LAUNCH(N, V)                                                  \
+  cc::launch_pass(cc::sq_pass_kernel<N, 0, V>, chunks, st, s, v, cs, C, \
+                  P, sq_part)
+  CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
 }
 
-// `scratch`: a (P, part) f32 buffer, needed only above 32 peers when the
-// update carries the next norms (sq_part given).
+// One iteration from v_in (null: zeros) into v_out (may be v_in: in
+// place). `scratch`: a (P, part) f32 buffer, needed only above 32 peers
+// when the update carries the next norms (sq_part given). With d2 (the
+// adaptive step) v_in must be v_out: a frozen partition is not written.
 extern "C" int cc_update(const float* x, long long ld, long long part,
-                         long long d, int n, int P, float* v, const float* cw,
-                         const float* wsum, long long cs, int C,
-                         float* sq_part, float* d2_part, const float* d2,
-                         float tol2, float* scratch, void* stream) {
+                         long long d, int n, int P, long long cs, int C,
+                         int vec, const float* vin, float* vout,
+                         const float* cw, const float* wsum, float* sq_part,
+                         float* d2_part, const float* d2, float tol2,
+                         float* scratch, void* stream) {
   const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
-  const dim3 grid(C, P);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long chunks = static_cast<long long>(P) * C;
   const bool with_sq = sq_part != nullptr, with_d2 = d2 != nullptr;
-  if (with_sq && n > cc::kTile && scratch == nullptr)
+  if ((with_sq && n > cc::kTile && scratch == nullptr) ||
+      (with_d2 && vin != vout))
     return static_cast<int>(cudaErrorInvalidValue);
-#define LAUNCH_SD(N, SQ, D2)                                         \
-  cc::update_kernel<N, 0, SQ, D2><<<grid, kThreads, 0, st>>>(       \
-      s, v, cw, wsum, cs, sq_part, d2_part, d2, tol2, scratch)
-#define LAUNCH(N)                      \
+#define LAUNCH_SD(N, V, SQ, D2)                                            \
+  cc::launch_pass(cc::update_kernel<N, 0, SQ, D2, V>, chunks, st, s, vin,  \
+                  vout, cw, wsum, cs, C, P, sq_part, d2_part, d2, tol2,    \
+                  scratch)
+#define LAUNCH(N, V)                   \
   do {                                 \
     if (with_sq && with_d2) {          \
-      LAUNCH_SD(N, true, true);        \
+      LAUNCH_SD(N, V, true, true);     \
     } else if (with_sq) {              \
-      LAUNCH_SD(N, true, false);       \
+      LAUNCH_SD(N, V, true, false);    \
     } else if (with_d2) {              \
-      LAUNCH_SD(N, false, true);       \
+      LAUNCH_SD(N, V, false, true);    \
     } else {                           \
-      LAUNCH_SD(N, false, false);      \
+      LAUNCH_SD(N, V, false, false);   \
     }                                  \
   } while (0)
-  CC_DISPATCH_PEERS(n, LAUNCH);
+  CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
 #undef LAUNCH_SD
   return cc::launch_status();
@@ -99,23 +112,23 @@ namespace {
 // The dot pass over P partitions, or over the k partitions `rows` (device
 // memory, k int32 ids in [0, P), checked by the caller) when given.
 int dot_pass(const float* x, long long ld, long long part, long long d,
-             int n, int n_rows, const int* rows, const float* v,
-             const float* z, long long cs, int C, float* dot_part,
+             int n, int n_rows, const int* rows, long long cs, int C,
+             int vec, const float* v, const float* z, float* dot_part,
              float* sq_part, void* stream) {
   const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
-  const dim3 grid(C, n_rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(N)                                                       \
-  do {                                                                  \
-    if (sq_part != nullptr) {                                           \
-      cc::dot_pass_kernel<N, 0, true><<<grid, kThreads, 0, st>>>(       \
-          s, v, z, cs, dot_part, sq_part, rows);                        \
-    } else {                                                            \
-      cc::dot_pass_kernel<N, 0, false><<<grid, kThreads, 0, st>>>(      \
-          s, v, z, cs, dot_part, sq_part, rows);                        \
-    }                                                                   \
+  const long long chunks = static_cast<long long>(n_rows) * C;
+#define LAUNCH(N, V)                                                        \
+  do {                                                                      \
+    if (sq_part != nullptr) {                                               \
+      cc::launch_pass(cc::dot_pass_kernel<N, 0, true, V>, chunks, st, s, v, \
+                      z, cs, C, n_rows, dot_part, sq_part, rows);           \
+    } else {                                                                \
+      cc::launch_pass(cc::dot_pass_kernel<N, 0, false, V>, chunks, st, s,   \
+                      v, z, cs, C, n_rows, dot_part, sq_part, rows);        \
+    }                                                                       \
   } while (0)
-  CC_DISPATCH_PEERS(n, LAUNCH);
+  CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
 }
@@ -123,46 +136,53 @@ int dot_pass(const float* x, long long ld, long long part, long long d,
 }  // namespace
 
 extern "C" int cc_dot_pass(const float* x, long long ld, long long part,
-                           long long d, int n, int P, const float* v,
-                           const float* z, long long cs, int C,
+                           long long d, int n, int P, long long cs, int C,
+                           int vec, const float* v, const float* z,
                            float* dot_part, float* sq_part, void* stream) {
-  return dot_pass(x, ld, part, d, n, P, nullptr, v, z, cs, C, dot_part,
+  return dot_pass(x, ld, part, d, n, P, nullptr, cs, C, vec, v, z, dot_part,
                   sq_part, stream);
 }
 
-// The sampled-digest pass: dot and square partials (k, C, n) of the k
+// The sampled-digest pass: dot and square partials (k, n, C) of the k
 // partitions rows[0..k) only; cs and C are those of the full P-partition
 // stack, so row j sums what row rows[j] of cc_dot_pass sums, in its order.
 // P is taken with the other stack arguments of every pass and not needed.
 extern "C" int cc_rows_dot_pass(const float* x, long long ld, long long part,
-                                long long d, int n, int P, const int* rows,
-                                int k, const float* v, const float* z,
-                                long long cs, int C, float* dot_part,
-                                float* sq_part, void* stream) {
+                                long long d, int n, int P, long long cs,
+                                int C, int vec, const int* rows, int k,
+                                const float* v, const float* z,
+                                float* dot_part, float* sq_part,
+                                void* stream) {
   (void)P;
-  return dot_pass(x, ld, part, d, n, k, rows, v, z, cs, C, dot_part,
+  return dot_pass(x, ld, part, d, n, k, rows, cs, C, vec, v, z, dot_part,
                   sq_part, stream);
 }
 
 extern "C" int cc_mean_pass(const float* x, long long ld, long long part,
-                            long long d, int n, int P, const float* w,
-                            long long cs, int C, float* v, void* stream) {
+                            long long d, int n, int P, long long cs, int C,
+                            int vec, const float* w, float* v,
+                            void* stream) {
   const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
-  const dim3 grid(C, P);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(N) \
-  cc::mean_pass_kernel<N, 0><<<grid, kThreads, 0, st>>>(s, w, cs, v)
-  CC_DISPATCH_PEERS(n, LAUNCH);
+  const long long chunks = static_cast<long long>(P) * C;
+#define LAUNCH(N, V)                                                       \
+  cc::launch_pass(cc::mean_pass_kernel<N, 0, V>, chunks, st, s, w, cs, C, \
+                  P, v)
+  CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
 }
 
+// The finishing kernels: a CTA per row of the (rows, n, C) partials and
+// peer, or (the adaptive step, which also finishes ||dv||^2 and writes d2)
+// a CTA per row for all its peers.
 extern "C" int cc_finish_weights(const float* sq_part, int P, int C, int n,
                                  const float* w, float tau, float* sq_out,
                                  float* cw_out, float* wsum_out,
                                  const float* d2_part, float* d2, int* iters,
                                  float tol2, void* stream) {
-  cc::finish_weights_kernel<<<cc::finish_grid(P, n), 32, 0,
+  const dim3 grid(P, d2 == nullptr ? n : 1);
+  cc::finish_weights_kernel<<<grid, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       sq_part, C, n, w, tau, sq_out, cw_out, wsum_out, d2_part, d2, iters,
       tol2);
@@ -174,7 +194,7 @@ extern "C" int cc_finish_tables(const float* dot_part, const float* sq_part,
                                 float tau, float* s_out, float* norm_out,
                                 void* stream) {
   cc::finish_tables_kernel<true>
-      <<<cc::finish_grid(P, n), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<dim3(P, n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           dot_part, sq_part, sq_in, C, n, tau, s_out, norm_out);
   return cc::launch_status();
 }
@@ -183,7 +203,46 @@ extern "C" int cc_finish_digests(const float* dot_part, const float* sq_part,
                                  int P, int C, int n, float* s_out,
                                  float* norm_out, void* stream) {
   cc::finish_tables_kernel<false>
-      <<<cc::finish_grid(P, n), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<dim3(P, n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           dot_part, sq_part, nullptr, C, n, 0.f, s_out, norm_out);
   return cc::launch_status();
+}
+
+// What the compiler made of a float32 pass, for a report: out[0] registers
+// a thread, out[1] local (spill) bytes a thread, out[2] resident CTAs per
+// SM. `pass`: 0 the norm pass, 1 the update with the next norms, 2 the dot
+// pass, 3 the dot pass with norms, 4 the mean pass, 5 finish weights, 6
+// finish tables, 7 the update alone (the two-pass clip), 8 the update with
+// norms and ||dv||^2 (the adaptive step); n and vec pick the
+// instantiation as a launch would.
+extern "C" int cc_pass_info(int pass, int n, int vec, int* out) {
+#define INFO(N, V)                                                          \
+  do {                                                                      \
+    switch (pass) {                                                         \
+      case 0:                                                               \
+        return cc::kernel_info(cc::sq_pass_kernel<N, 0, V>, out);           \
+      case 1:                                                               \
+        return cc::kernel_info(cc::update_kernel<N, 0, true, false, V>,     \
+                               out);                                        \
+      case 2:                                                               \
+        return cc::kernel_info(cc::dot_pass_kernel<N, 0, false, V>, out);   \
+      case 3:                                                               \
+        return cc::kernel_info(cc::dot_pass_kernel<N, 0, true, V>, out);    \
+      case 4:                                                               \
+        return cc::kernel_info(cc::mean_pass_kernel<N, 0, V>, out);         \
+      case 7:                                                               \
+        return cc::kernel_info(cc::update_kernel<N, 0, false, false, V>,    \
+                               out);                                        \
+      case 8:                                                               \
+        return cc::kernel_info(cc::update_kernel<N, 0, true, true, V>,      \
+                               out);                                        \
+      default:                                                              \
+        break;                                                              \
+    }                                                                       \
+  } while (0)
+  if (pass == 5) return cc::kernel_info(cc::finish_weights_kernel, out);
+  if (pass == 6) return cc::kernel_info(cc::finish_tables_kernel<true>, out);
+  CC_DISPATCH_PEERS(n, vec, INFO);
+#undef INFO
+  return static_cast<int>(cudaErrorInvalidValue);
 }

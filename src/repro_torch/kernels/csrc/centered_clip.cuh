@@ -9,49 +9,76 @@
 // path's zero padding computes. X is float32 (the gradient matrix) or a
 // wire payload (int8 or bf16, one f32 scale per (partition, peer)),
 // dequantized in registers as __fmul_rn(float(q), scale): a separate,
-// correctly rounded multiply that nvcc may not contract into the FMA of a
-// following subtract, so the value every pass sees is exactly
+// correctly rounded multiply, so the value every pass sees is exactly
 // core.compression.dequantize(q, scale), and a wire kernel gives the bits
-// of its float32 twin run on the dequantized matrix.
+// of its float32 twin run on the dequantized matrix. Every multiply-add is
+// spelled with the _rn intrinsics (__fsub_rn, __fmaf_rn, ...), so no
+// choice of the compiler's contraction can differ between two bodies.
 //
 // Bound: bytes. One pass reads n*part elements per partition and does a
 // few flops per element, far below the card's ~20 flops/byte balance
 // point, so every kernel streams the stack once per pass and keeps
-// per-peer sums in registers. Design for that bound, kept simple:
-//   * a pass runs over a (chunk, partition) grid of CTAs; each thread walks
-//     its columns of the chunk and accumulates n per-peer sums in
-//     registers; a fixed warp-shuffle tree and a fixed cross-warp sum then
-//     give the CTA's (n,) partials, written to a (P, C, n) buffer;
-//   * a small finishing kernel sums those partials over C in a fixed order
-//     and turns them into clip weights, table entries or digests;
+// per-peer sums in registers. The design for that bound:
+//   * a logical chunk grid, fixed by (n, d, P) alone: each partition is cut
+//     into C chunks of cs columns (a constant, kernels/centered_clip.py
+//     CHUNK), and each chunk gives one row of (P, n, C) partial sums;
+//   * a persistent grid of CTAs, as many as the card holds at once (its SM
+//     count times the kernel's resident CTAs per SM), walks the logical
+//     chunks q = blockIdx.x, blockIdx.x + gridDim.x, ... The chunk a CTA
+//     takes changes nothing in how the chunk is summed, so the bits depend
+//     on (n, d, P) and the constant, never on the card;
+//   * inside a chunk each thread owns groups of G consecutive columns
+//     (G = 4 up to 8 peers, 1 above), group t, t + 256, ... of the chunk,
+//     and sums them column by column in index order into n per-peer sums;
+//     a fixed warp-shuffle tree and a fixed cross-warp sum give the chunk's
+//     (n,) partials. A group of 4 is one 16-byte load of float32 (8 bytes
+//     of bf16, 4 of int8) per peer where every (peer, partition) row start
+//     is aligned (VEC), and otherwise the same 4 columns loaded one by one
+//     in the same order: one stack gives the same bits at any storage
+//     offset or row stride;
+//   * a finishing kernel, one CTA per (partition, peer), sums the peer's C
+//     partials in a fixed tree (thread t takes partials t, t + 256, ... in
+//     turn, then the CTA's shuffle tree) and turns them into clip weights,
+//     table entries or digests;
 //   * the update and the weighted mean are coordinatewise once the peer
-//     weights are known, so each CTA writes its own slice of v with no
+//     weights are known, so each chunk writes its own slice of v with no
 //     cross-CTA traffic.
-// No float atomics and no order that depends on scheduling: the same inputs
-// give the same bits on every run, which the protocol's recomputed digests
-// rely on. Offsets are 64-bit (n*d exceeds 2^31 at full width).
+// No float atomics and no order that depends on scheduling or on the card:
+// the same inputs give the same bits on every run and every card, which the
+// protocol's recomputed digests rely on. Offsets are 64-bit (n*d exceeds
+// 2^31 at full width).
 //
 // Peer tiles. The per-peer sums live in MAXN-sized register arrays, MAXN
 // the smallest of 4/8/16/32 that holds n. Above 32 peers the MAXN = 32
 // instantiation branches to the peer-tiled passes, which walk the peers in
 // tiles of 32, in index order: a reduction pass walks its chunk once per
-// tile and writes that tile's slice of the same (P, C, n) partials; the
+// tile and writes that tile's slice of the same (P, n, C) partials; the
 // weighted sum over peers of the update and the mean runs over all n peers
 // inside the thread, in index order, with the peer weights read from
 // cache. The update that also carries the next norms keeps each column's
-// update in a (P, part) scratch vector between its two sweeps. The finish
-// kernels take the peers 32 to a CTA along the grid's y axis. For n <= 32
+// update in a (P, part) scratch vector between its two sweeps. For n <= 32
 // every kernel runs its untiled body.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace cc {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;  // peers a register tile holds
+
+// Columns of a group: 4 where the per-peer register arrays leave room (up
+// to 8 peers), 1 above. The host's chunk length is a multiple of 4.
+template <int MAXN>
+__host__ __device__ constexpr int group_cols() {
+  return MAXN <= 8 ? 4 : 1;
+}
 
 // Element types of the stack: DT 0 = float32, 1 = int8, 2 = bf16 (its 16
 // bits, widened exactly by a shift).
@@ -73,6 +100,31 @@ template <> struct Elem<2> {
   }
 };
 
+// Four consecutive elements of the stack in one load (16, 4 or 8 bytes).
+template <int DT> struct Load4;
+template <> struct Load4<0> {
+  static __device__ __forceinline__ void get(const float* p, float (&o)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+  }
+};
+template <> struct Load4<1> {
+  static __device__ __forceinline__ void get(const signed char* p,
+                                             float (&o)[4]) {
+    const char4 q = __ldg(reinterpret_cast<const char4*>(p));
+    o[0] = Elem<1>::f32(q.x), o[1] = Elem<1>::f32(q.y);
+    o[2] = Elem<1>::f32(q.z), o[3] = Elem<1>::f32(q.w);
+  }
+};
+template <> struct Load4<2> {
+  static __device__ __forceinline__ void get(const unsigned short* p,
+                                             float (&o)[4]) {
+    const ushort4 q = __ldg(reinterpret_cast<const ushort4*>(p));
+    o[0] = Elem<2>::f32(q.x), o[1] = Elem<2>::f32(q.y);
+    o[2] = Elem<2>::f32(q.z), o[3] = Elem<2>::f32(q.w);
+  }
+};
+
 template <int DT>
 struct Stack {
   const typename Elem<DT>::T* x;  // (i, p, k) at x[i * ld + p * part + k]
@@ -90,9 +142,10 @@ __device__ __forceinline__ float peer_scale(const Stack<DT>& s, int i,
   return (DT == 0 || i >= s.n) ? 1.f : s.scales[p * s.n + i];
 }
 
+// One element (the peer-tiled bodies): x_i at column k of partition p.
 template <int DT>
-__device__ __forceinline__ float load_x(const Stack<DT>& s, int i,
-                                        long long p, long long k, float sc) {
+__device__ __forceinline__ float load_x1(const Stack<DT>& s, int i,
+                                         long long p, long long k, float sc) {
   const long long j = p * s.part + k;
   if (j >= s.d) return 0.f;
   const float q =
@@ -100,10 +153,91 @@ __device__ __forceinline__ float load_x(const Stack<DT>& s, int i,
   return DT == 0 ? q : __fmul_rn(q, sc);
 }
 
+// A group: the columns k .. k + G - 1 of a chunk that ends at k1. nv of
+// them lie in the chunk (the rest are past the partition's end and take no
+// part); nx of those lie before d (the rest read as zero).
+struct Group {
+  int nv, nx;
+};
+
+template <int G, bool VEC, int DT>
+__device__ __forceinline__ Group group_at(const Stack<DT>& s, long long p,
+                                          long long k, long long k1) {
+  // VEC: part and cs are multiples of 4, so no group crosses k1
+  const int nv = VEC ? G : static_cast<int>(min(static_cast<long long>(G),
+                                                k1 - k));
+  const long long left = s.d - (p * s.part + k);
+  const int nx = static_cast<int>(
+      max(0LL, min(static_cast<long long>(nv), left)));
+  return {nv, nx};
+}
+
+// Peer i's values in the group (dequantized). VEC: one load when all G lie
+// before d; otherwise (and always without VEC) one load per column, the
+// same values in the same order.
+template <int G, bool VEC, int DT>
+__device__ __forceinline__ void load_x(const Stack<DT>& s, int i, long long p,
+                                       long long k, Group g, float sc,
+                                       float (&o)[G]) {
+  const auto* row = s.x + static_cast<long long>(i) * s.ld + p * s.part + k;
+  if constexpr (VEC) {
+    static_assert(G == 4, "16-byte loads take groups of 4");
+    if (g.nx == G) {
+      Load4<DT>::get(row, o);
+      if (DT != 0) {
+#pragma unroll
+        for (int e = 0; e < G; ++e) o[e] = __fmul_rn(o[e], sc);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+    o[e] = 0.f;
+    if (e < g.nx) {
+      const float q = Elem<DT>::f32(__ldg(row + e));
+      o[e] = DT == 0 ? q : __fmul_rn(q, sc);
+    }
+  }
+}
+
+// The group's columns of a float32 vector row (v, z): zeros past the chunk
+// or for a null vector (a cold start, v = 0, read from nothing).
+template <int G, bool VEC>
+__device__ __forceinline__ void load_f(const float* row, long long k, Group g,
+                                       float (&o)[G]) {
+  if (row == nullptr) {
+#pragma unroll
+    for (int e = 0; e < G; ++e) o[e] = 0.f;
+    return;
+  }
+  if constexpr (VEC) {
+    const float4 q = *reinterpret_cast<const float4*>(row + k);
+    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < G; ++e) o[e] = e < g.nv ? row[k + e] : 0.f;
+}
+
+template <int G, bool VEC>
+__device__ __forceinline__ void store_f(float* row, long long k, Group g,
+                                        const float (&o)[G]) {
+  if constexpr (VEC) {
+    *reinterpret_cast<float4*>(row + k) = make_float4(o[0], o[1], o[2], o[3]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+    if (e < g.nv) row[k + e] = o[e];
+  }
+}
+
 // Sum `acc[i]` (i < n) over the CTA in a fixed order; thread i < n writes
-// the total to out[i]. All threads must call it.
+// the total to out[i * stride]. All threads must call it.
 template <int MAXN>
-__device__ void block_sums(const float (&acc)[MAXN], int n, float* out) {
+__device__ void block_sums(const float (&acc)[MAXN], int n, float* out,
+                           long long stride) {
   __shared__ float sm[kWarps][MAXN];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -120,11 +254,12 @@ __device__ void block_sums(const float (&acc)[MAXN], int n, float* out) {
   if (threadIdx.x < n) {
     float t = 0.f;
     for (int w = 0; w < kWarps; ++w) t += sm[w][threadIdx.x];
-    out[threadIdx.x] = t;
+    out[threadIdx.x * stride] = t;
   }
   __syncthreads();
 }
 
+// The CTA's total of v, to every thread, in a fixed order.
 __device__ __forceinline__ float block_sum1(float v) {
   __shared__ float sm[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -139,6 +274,16 @@ __device__ __forceinline__ float block_sum1(float v) {
   return t;
 }
 
+// x[0] + ... + x[C - 1] in a fixed tree: thread t sums x[t], x[t + 256],
+// ... in turn, then block_sum1. All threads must call it; all get the sum.
+__device__ __forceinline__ float fixed_sum(const float* __restrict__ x,
+                                           int C) {
+  float t = 0.f;
+#pragma unroll 4
+  for (int c = threadIdx.x; c < C; c += kThreads) t += __ldg(x + c);
+  return block_sum1(t);
+}
+
 // min(1, tau / ||.||) from a squared norm, safe at 0; tau = inf -> 1
 // (kernels/centered_clip.py:322-326 of the JAX package).
 __device__ __forceinline__ float clip_weight(float sq, float tau) {
@@ -147,14 +292,31 @@ __device__ __forceinline__ float clip_weight(float sq, float tau) {
   return fminf(1.f, tau / fmaxf(nrm, 1e-30f));
 }
 
+// The logical chunk q of a rows x C grid: row r, columns [k0, k1).
+struct Chunk {
+  long long r, k0, k1;
+  int c;
+};
+
+__device__ __forceinline__ Chunk chunk_at(long long q, int C, long long cs,
+                                          long long part) {
+  Chunk ch;
+  ch.r = q / C;
+  ch.c = static_cast<int>(q - ch.r * C);
+  ch.k0 = ch.c * cs;
+  ch.k1 = min(part, ch.k0 + cs);
+  return ch;
+}
+
 // The reduction passes above 32 peers (see "Peer tiles"): the CTA walks
 // its chunk once per tile of MAXN peers, in index order, and writes the
-// tile's slice of its row of the (P, C, n) partials: <x_i - v, z> into
-// dot_out (DOT) and ||x_i - v||^2 into sq_out (SQ).
+// tile's slice of its column of the (rows, n, C) partials: <x_i - v, z>
+// into dot_out (DOT) and ||x_i - v||^2 into sq_out (SQ), peer i at
+// [i * C]. vp null: v = 0.
 template <int MAXN, int DT, bool DOT, bool SQ>
 __device__ void reduce_tiled(const Stack<DT>& s, long long p, long long k0,
-                             long long k1, const float* vp, const float* zp,
-                             float* dot_out, float* sq_out) {
+                             long long k1, int C, const float* vp,
+                             const float* zp, float* dot_out, float* sq_out) {
   for (int i0 = 0; i0 < s.n; i0 += MAXN) {
     const int nt = min(MAXN, s.n - i0);
     float dacc[MAXN], sacc[MAXN], sc[MAXN];
@@ -164,82 +326,100 @@ __device__ void reduce_tiled(const Stack<DT>& s, long long p, long long k0,
       sc[i] = peer_scale(s, i0 + i, p);
     }
     for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
-      const float vk = vp[k], zk = DOT ? zp[k] : 0.f;
+      const float vk = vp == nullptr ? 0.f : vp[k];
+      const float zk = DOT ? zp[k] : 0.f;
 #pragma unroll
       for (int i = 0; i < MAXN; ++i) {
         if (i < nt) {
-          const float df = load_x(s, i0 + i, p, k, sc[i]) - vk;
-          if (DOT) dacc[i] += df * zk;
-          if (SQ) sacc[i] += df * df;
+          const float df = __fsub_rn(load_x1(s, i0 + i, p, k, sc[i]), vk);
+          if (DOT) dacc[i] = __fmaf_rn(df, zk, dacc[i]);
+          if (SQ) sacc[i] = __fmaf_rn(df, df, sacc[i]);
         }
       }
     }
-    if (DOT) block_sums<MAXN>(dacc, nt, dot_out + i0);
-    if (SQ) block_sums<MAXN>(sacc, nt, sq_out + i0);
+    if (DOT) block_sums<MAXN>(dacc, nt, dot_out + i0 * C, C);
+    if (SQ) block_sums<MAXN>(sacc, nt, sq_out + i0 * C, C);
   }
 }
 
-// Pass: per-peer partial sums of ||x_i - v||^2 over this CTA's chunk.
-template <int MAXN, int DT>
-__global__ void __launch_bounds__(kThreads)
-sq_pass_kernel(Stack<DT> s, const float* __restrict__ v, long long cs,
+// Pass: per-peer partial sums of ||x_i - v||^2 over each chunk; v null
+// reads as zero (the prologue of a cold start). At 16 peers the compiler's
+// own choice is 119 registers (2 CTAs an SM); 3 CTAs keep it near its
+// earlier 75.
+template <int MAXN, int DT, bool VEC>
+__global__ void __launch_bounds__(kThreads, MAXN == 16 ? 3 : 1)
+sq_pass_kernel(Stack<DT> s, const float* v, long long cs, int C, int rows,
                float* __restrict__ sq_part) {
-  const int c = blockIdx.x, C = gridDim.x;
-  const long long p = blockIdx.y;
-  const long long k0 = c * cs;
-  const long long k1 = min(s.part, k0 + cs);
-  const float* vp = v + p * s.part;
-  if (MAXN == kTile && s.n > MAXN) {
-    reduce_tiled<MAXN, DT, false, true>(s, p, k0, k1, vp, nullptr, nullptr,
-                                        sq_part + (p * C + c) * s.n);
-    return;
-  }
-  float acc[MAXN], sc[MAXN];
-#pragma unroll
-  for (int i = 0; i < MAXN; ++i) {
-    acc[i] = 0.f;
-    sc[i] = peer_scale(s, i, p);
-  }
-  for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
-    const float vk = vp[k];
+  constexpr int G = group_cols<MAXN>();
+  const long long chunks = static_cast<long long>(rows) * C;
+  for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
+    const Chunk ch = chunk_at(q, C, cs, s.part);
+    const long long p = ch.r;
+    const float* vp = v == nullptr ? nullptr : v + p * s.part;
+    float* out = sq_part + p * s.n * C + ch.c;
+    if (MAXN == kTile && s.n > MAXN) {
+      reduce_tiled<MAXN, DT, false, true>(s, p, ch.k0, ch.k1, C, vp, nullptr,
+                                          nullptr, out);
+      continue;
+    }
+    float acc[MAXN], sc[MAXN];
 #pragma unroll
     for (int i = 0; i < MAXN; ++i) {
-      if (i < s.n) {
-        const float df = load_x(s, i, p, k, sc[i]) - vk;
-        acc[i] += df * df;
+      acc[i] = 0.f;
+      sc[i] = peer_scale(s, i, p);
+    }
+    for (long long k = ch.k0 + threadIdx.x * G; k < ch.k1;
+         k += kThreads * G) {
+      const Group g = group_at<G, VEC>(s, p, k, ch.k1);
+      float vg[G];
+      load_f<G, VEC>(vp, k, g, vg);
+#pragma unroll
+      for (int i = 0; i < MAXN; ++i) {
+        if (i < s.n) {
+          float xg[G];
+          load_x<G, VEC>(s, i, p, k, g, sc[i], xg);
+#pragma unroll
+          for (int e = 0; e < G; ++e) {
+            if (e < g.nv) {
+              const float df = __fsub_rn(xg[e], vg[e]);
+              acc[i] = __fmaf_rn(df, df, acc[i]);
+            }
+          }
+        }
       }
     }
+    block_sums<MAXN>(acc, s.n, out, C);
   }
-  block_sums<MAXN>(acc, s.n, sq_part + (p * C + c) * s.n);
 }
 
 // The update pass above 32 peers (see "Peer tiles"): sweep 1 forms each
 // column's update over all n peers in index order; with SQ it keeps the
-// update in `u` and sweep 2 walks the peer tiles for the next norms, the
+// update in `up` and sweep 2 walks the peer tiles for the next norms, the
 // last tile writing v; without SQ sweep 1 writes v. The arithmetic is the
-// untiled pass's, peer by peer.
+// untiled pass's, peer by peer. vi null: v = 0.
 template <int MAXN, int DT, bool SQ, bool D2>
 __device__ void update_tiled(const Stack<DT>& s, long long p, int c, int C,
-                             long long k0, long long k1, float* vp,
-                             const float* cwp, float ws, float* sq_part,
-                             float* d2_part, float* up) {
+                             long long k0, long long k1, const float* vi,
+                             float* vo, const float* cwp, float ws,
+                             float* sq_part, float* d2_part, float* up) {
   float dacc = 0.f;
   for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
-    const float vk = vp[k];
+    const float vk = vi == nullptr ? 0.f : vi[k];
     float num = 0.f;
     for (int i = 0; i < s.n; ++i) {
-      const float diff = load_x(s, i, p, k, peer_scale(s, i, p)) - vk;
-      num += __ldg(cwp + i) * diff;
+      const float diff =
+          __fsub_rn(load_x1(s, i, p, k, peer_scale(s, i, p)), vk);
+      num = __fmaf_rn(__ldg(cwp + i), diff, num);
     }
-    const float upd = num / ws;
+    const float upd = __fdiv_rn(num, ws);
     if (SQ) {
       up[k] = upd;
     } else {
-      const float vn = vk + upd;
-      vp[k] = vn;
+      const float vn = __fadd_rn(vk, upd);
+      vo[k] = vn;
       if (D2) {
-        const float dv = vn - vk;
-        dacc += dv * dv;
+        const float dv = __fsub_rn(vn, vk);
+        dacc = __fmaf_rn(dv, dv, dacc);
       }
     }
   }
@@ -254,24 +434,25 @@ __device__ void update_tiled(const Stack<DT>& s, long long p, int c, int C,
         sc[i] = peer_scale(s, i0 + i, p);
       }
       for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
-        const float vk = vp[k], upd = up[k];
+        const float vk = vi == nullptr ? 0.f : vi[k], upd = up[k];
 #pragma unroll
         for (int i = 0; i < MAXN; ++i) {
           if (i < nt) {
-            const float nd = (load_x(s, i0 + i, p, k, sc[i]) - vk) - upd;
-            acc[i] += nd * nd;
+            const float nd = __fsub_rn(
+                __fsub_rn(load_x1(s, i0 + i, p, k, sc[i]), vk), upd);
+            acc[i] = __fmaf_rn(nd, nd, acc[i]);
           }
         }
         if (last) {
-          const float vn = vk + upd;
-          vp[k] = vn;
+          const float vn = __fadd_rn(vk, upd);
+          vo[k] = vn;
           if (D2) {
-            const float dv = vn - vk;
-            dacc += dv * dv;
+            const float dv = __fsub_rn(vn, vk);
+            dacc = __fmaf_rn(dv, dv, dacc);
           }
         }
       }
-      block_sums<MAXN>(acc, nt, sq_part + (p * C + c) * s.n + i0);
+      block_sums<MAXN>(acc, nt, sq_part + (p * s.n + i0) * C + c, C);
     }
   }
   if (D2) {
@@ -280,230 +461,282 @@ __device__ void update_tiled(const Stack<DT>& s, long long p, int c, int C,
   }
 }
 
-// Pass: one CenteredClip iteration, v += sum_i cw_i (x_i - v) / wsum, in
-// place. SQ: also the NEXT iteration's squared norms, sum ||diff - upd||^2
-// from values already in registers (the fused kernel's incremental norms).
-// D2: also ||v_new - v||^2 partials, and partitions with d2[p] <= tol2 are
+// Pass: one CenteredClip iteration, v_out = v_in + sum_i cw_i (x_i - v_in)
+// / wsum, column by column (in place when v_in == v_out; v_in null reads
+// as zero, the first iteration of a cold start). SQ: also the NEXT
+// iteration's squared norms, sum ||diff - upd||^2 from values already in
+// registers (the fused kernel's incremental norms). D2 (in place only):
+// also ||v_new - v||^2 partials, and partitions with d2[p] <= tol2 are
 // frozen (the adaptive loop's select). Above 32 peers: update_tiled, with
 // the (P, part) scratch `u` when SQ.
-template <int MAXN, int DT, bool SQ, bool D2>
-__global__ void __launch_bounds__(kThreads)
-update_kernel(Stack<DT> s, float* __restrict__ v,
+//
+// Registers: at 4 peers the compiler's own choice (104-116 a thread, 2
+// CTAs an SM) streamed at 2.1 TB/s on an H100 SXM, and a budget of 64 (4
+// CTAs, no spills) at 2.8 TB/s (chip_smoke.py --breakdown, PERF.md), so
+// the 4-peer instantiations ask for 4 resident CTAs.
+template <int MAXN, int DT, bool SQ, bool D2, bool VEC>
+__global__ void __launch_bounds__(kThreads, MAXN <= 4 ? 4 : 1)
+update_kernel(Stack<DT> s, const float* vin, float* vout,
               const float* __restrict__ cw, const float* __restrict__ wsum,
-              long long cs, float* __restrict__ sq_part,
+              long long cs, int C, int rows, float* __restrict__ sq_part,
               float* __restrict__ d2_part, const float* __restrict__ d2,
               float tol2, float* __restrict__ u) {
-  const int c = blockIdx.x, C = gridDim.x;
-  const long long p = blockIdx.y;
-  if (D2 && !(d2[p] > tol2)) return;  // converged partition: frozen
-  const long long k0 = c * cs;
-  const long long k1 = min(s.part, k0 + cs);
-  float* vp = v + p * s.part;
-  if (MAXN == kTile && s.n > MAXN) {
-    update_tiled<MAXN, DT, SQ, D2>(s, p, c, C, k0, k1, vp, cw + p * s.n,
-                                   *wsum, sq_part, d2_part,
-                                   SQ ? u + p * s.part : nullptr);
-    return;
-  }
-  float w[MAXN], acc[MAXN], sc[MAXN];
-#pragma unroll
-  for (int i = 0; i < MAXN; ++i) {
-    w[i] = i < s.n ? cw[p * s.n + i] : 0.f;
-    acc[i] = 0.f;
-    sc[i] = peer_scale(s, i, p);
-  }
+  constexpr int G = group_cols<MAXN>();
   const float ws = *wsum;
-  float dacc = 0.f;
-  for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
-    const float vk = vp[k];
-    float diff[MAXN];
-    float num = 0.f;
+  const long long chunks = static_cast<long long>(rows) * C;
+  for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
+    const Chunk ch = chunk_at(q, C, cs, s.part);
+    const long long p = ch.r;
+    if (D2 && !(d2[p] > tol2)) continue;  // converged partition: frozen
+    const float* vi = vin == nullptr ? nullptr : vin + p * s.part;
+    float* vo = vout + p * s.part;
+    if (MAXN == kTile && s.n > MAXN) {
+      update_tiled<MAXN, DT, SQ, D2>(s, p, ch.c, C, ch.k0, ch.k1, vi, vo,
+                                     cw + p * s.n, ws, sq_part, d2_part,
+                                     SQ ? u + p * s.part : nullptr);
+      continue;
+    }
+    float w[MAXN], acc[MAXN], sc[MAXN];
 #pragma unroll
     for (int i = 0; i < MAXN; ++i) {
-      if (i < s.n) {
-        diff[i] = load_x(s, i, p, k, sc[i]) - vk;
-        num += w[i] * diff[i];
-      }
+      w[i] = i < s.n ? cw[p * s.n + i] : 0.f;
+      acc[i] = 0.f;
+      sc[i] = peer_scale(s, i, p);
     }
-    const float upd = num / ws;
-    const float vn = vk + upd;
-    vp[k] = vn;
-    if (SQ) {
+    float dacc = 0.f;
+    for (long long k = ch.k0 + threadIdx.x * G; k < ch.k1;
+         k += kThreads * G) {
+      const Group g = group_at<G, VEC>(s, p, k, ch.k1);
+      float vg[G], num[G], diff[MAXN][G];
+      load_f<G, VEC>(vi, k, g, vg);
+#pragma unroll
+      for (int e = 0; e < G; ++e) num[e] = 0.f;
 #pragma unroll
       for (int i = 0; i < MAXN; ++i) {
         if (i < s.n) {
-          const float nd = diff[i] - upd;
-          acc[i] += nd * nd;
+          float xg[G];
+          load_x<G, VEC>(s, i, p, k, g, sc[i], xg);
+#pragma unroll
+          for (int e = 0; e < G; ++e) {
+            diff[i][e] = __fsub_rn(xg[e], vg[e]);
+            num[e] = __fmaf_rn(w[i], diff[i][e], num[e]);
+          }
+        }
+      }
+      float upd[G], vn[G];
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        upd[e] = __fdiv_rn(num[e], ws);
+        vn[e] = __fadd_rn(vg[e], upd[e]);
+      }
+      store_f<G, VEC>(vo, k, g, vn);
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        if (e < g.nv) {
+          if (SQ) {
+#pragma unroll
+            for (int i = 0; i < MAXN; ++i) {
+              if (i < s.n) {
+                const float nd = __fsub_rn(diff[i][e], upd[e]);
+                acc[i] = __fmaf_rn(nd, nd, acc[i]);
+              }
+            }
+          }
+          if (D2) {
+            const float dv = __fsub_rn(vn[e], vg[e]);
+            dacc = __fmaf_rn(dv, dv, dacc);
+          }
         }
       }
     }
+    if (SQ) block_sums<MAXN>(acc, s.n, sq_part + p * s.n * C + ch.c, C);
     if (D2) {
-      const float dv = vn - vk;
-      dacc += dv * dv;
+      const float t = block_sum1(dacc);
+      if (threadIdx.x == 0) d2_part[p * C + ch.c] = t;
     }
-  }
-  if (SQ) block_sums<MAXN>(acc, s.n, sq_part + (p * C + c) * s.n);
-  if (D2) {
-    const float t = block_sum1(dacc);
-    if (threadIdx.x == 0) d2_part[p * C + c] = t;
   }
 }
 
 // Pass: per-peer partials of <x_i - v, z> and, with SQ, ||x_i - v||^2.
-// CTA (c, j) reads partition p = j, or p = rows[j] when `rows` is given
-// (the sampled-digest pass: only the k sampled partitions are read), and
-// writes row j of the partials. The body is the same either way, so row
-// j of a sampled pass has the bits of row rows[j] of the full pass.
-template <int MAXN, int DT, bool SQ>
+// Row j of the chunk grid reads partition p = j, or p = rows_at[j] when
+// given (the sampled-digest pass: only the k sampled partitions are read),
+// and writes row j of the partials. The body is the same either way, so
+// row j of a sampled pass has the bits of row rows_at[j] of the full pass.
+template <int MAXN, int DT, bool SQ, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-dot_pass_kernel(Stack<DT> s, const float* __restrict__ v,
-                const float* __restrict__ z, long long cs,
-                float* __restrict__ dot_part, float* __restrict__ sq_part,
-                const int* __restrict__ rows) {
-  const int c = blockIdx.x, C = gridDim.x;
-  const long long j = blockIdx.y;
-  const long long p = rows == nullptr ? j : static_cast<long long>(rows[j]);
-  const long long k0 = c * cs;
-  const long long k1 = min(s.part, k0 + cs);
-  const float* vp = v + p * s.part;
-  const float* zp = z + p * s.part;
-  if (MAXN == kTile && s.n > MAXN) {
-    reduce_tiled<MAXN, DT, true, SQ>(
-        s, p, k0, k1, vp, zp, dot_part + (j * C + c) * s.n,
-        SQ ? sq_part + (j * C + c) * s.n : nullptr);
-    return;
-  }
-  float dacc[MAXN], sacc[MAXN], sc[MAXN];
-#pragma unroll
-  for (int i = 0; i < MAXN; ++i) {
-    dacc[i] = sacc[i] = 0.f;
-    sc[i] = peer_scale(s, i, p);
-  }
-  for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
-    const float vk = vp[k], zk = zp[k];
+dot_pass_kernel(Stack<DT> s, const float* v, const float* __restrict__ z,
+                long long cs, int C, int rows, float* __restrict__ dot_part,
+                float* __restrict__ sq_part, const int* __restrict__ rows_at) {
+  constexpr int G = group_cols<MAXN>();
+  const long long chunks = static_cast<long long>(rows) * C;
+  for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
+    const Chunk ch = chunk_at(q, C, cs, s.part);
+    const long long j = ch.r;
+    const long long p =
+        rows_at == nullptr ? j : static_cast<long long>(rows_at[j]);
+    const float* vp = v == nullptr ? nullptr : v + p * s.part;
+    const float* zp = z + p * s.part;
+    float* dout = dot_part + j * s.n * C + ch.c;
+    float* sout = SQ ? sq_part + j * s.n * C + ch.c : nullptr;
+    if (MAXN == kTile && s.n > MAXN) {
+      reduce_tiled<MAXN, DT, true, SQ>(s, p, ch.k0, ch.k1, C, vp, zp, dout,
+                                       sout);
+      continue;
+    }
+    float dacc[MAXN], sacc[MAXN], sc[MAXN];
 #pragma unroll
     for (int i = 0; i < MAXN; ++i) {
-      if (i < s.n) {
-        const float df = load_x(s, i, p, k, sc[i]) - vk;
-        dacc[i] += df * zk;
-        if (SQ) sacc[i] += df * df;
+      dacc[i] = sacc[i] = 0.f;
+      sc[i] = peer_scale(s, i, p);
+    }
+    for (long long k = ch.k0 + threadIdx.x * G; k < ch.k1;
+         k += kThreads * G) {
+      const Group g = group_at<G, VEC>(s, p, k, ch.k1);
+      float vg[G], zg[G];
+      load_f<G, VEC>(vp, k, g, vg);
+      load_f<G, VEC>(zp, k, g, zg);
+#pragma unroll
+      for (int i = 0; i < MAXN; ++i) {
+        if (i < s.n) {
+          float xg[G];
+          load_x<G, VEC>(s, i, p, k, g, sc[i], xg);
+#pragma unroll
+          for (int e = 0; e < G; ++e) {
+            if (e < g.nv) {
+              const float df = __fsub_rn(xg[e], vg[e]);
+              dacc[i] = __fmaf_rn(df, zg[e], dacc[i]);
+              if (SQ) sacc[i] = __fmaf_rn(df, df, sacc[i]);
+            }
+          }
+        }
       }
     }
+    block_sums<MAXN>(dacc, s.n, dout, C);
+    if (SQ) block_sums<MAXN>(sacc, s.n, sout, C);
   }
-  block_sums<MAXN>(dacc, s.n, dot_part + (j * C + c) * s.n);
-  if (SQ) block_sums<MAXN>(sacc, s.n, sq_part + (j * C + c) * s.n);
 }
 
 // Pass: the weighted per-partition mean, v[p, k] = sum_i w_i x_i[k] /
 // max(sum_i w_i, 1e-30), peers summed in index order. Coordinatewise, so
-// each CTA writes its own slice of v and nothing crosses CTAs. Above 32
+// each chunk writes its own slice of v and nothing crosses CTAs. Above 32
 // peers the weights and scales are read from cache instead of registers.
-template <int MAXN, int DT>
+template <int MAXN, int DT, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 mean_pass_kernel(Stack<DT> s, const float* __restrict__ w, long long cs,
-                 float* __restrict__ v) {
-  const long long p = blockIdx.y;
-  const long long k0 = blockIdx.x * cs;
-  const long long k1 = min(s.part, k0 + cs);
-  if (MAXN == kTile && s.n > MAXN) {
-    float wt = 0.f;
-    for (int i = 0; i < s.n; ++i) wt += w[i];
-    const float ws = fmaxf(wt, 1e-30f);
-    float* vp = v + p * s.part;
-    for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
-      float num = 0.f;
-      for (int i = 0; i < s.n; ++i)
-        num += __ldg(w + i) * load_x(s, i, p, k, peer_scale(s, i, p));
-      vp[k] = num / ws;
-    }
-    return;
-  }
-  float wr[MAXN], sc[MAXN];
+                 int C, int rows, float* __restrict__ v) {
+  constexpr int G = group_cols<MAXN>();
   float wt = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAXN; ++i) {
-    wr[i] = i < s.n ? w[i] : 0.f;
-    sc[i] = peer_scale(s, i, p);
-  }
   for (int i = 0; i < s.n; ++i) wt += w[i];
   const float ws = fmaxf(wt, 1e-30f);
-  float* vp = v + p * s.part;
-  for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
-    float num = 0.f;
+  float wr[MAXN];
 #pragma unroll
-    for (int i = 0; i < MAXN; ++i) {
-      if (i < s.n) num += wr[i] * load_x(s, i, p, k, sc[i]);
+  for (int i = 0; i < MAXN; ++i) wr[i] = i < s.n ? w[i] : 0.f;
+  const long long chunks = static_cast<long long>(rows) * C;
+  for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
+    const Chunk ch = chunk_at(q, C, cs, s.part);
+    const long long p = ch.r;
+    float* vp = v + p * s.part;
+    if (MAXN == kTile && s.n > MAXN) {
+      for (long long k = ch.k0 + threadIdx.x; k < ch.k1; k += kThreads) {
+        float num = 0.f;
+        for (int i = 0; i < s.n; ++i)
+          num = __fmaf_rn(__ldg(w + i),
+                          load_x1(s, i, p, k, peer_scale(s, i, p)), num);
+        vp[k] = __fdiv_rn(num, ws);
+      }
+      continue;
     }
-    vp[k] = num / ws;
+    float sc[MAXN];
+#pragma unroll
+    for (int i = 0; i < MAXN; ++i) sc[i] = peer_scale(s, i, p);
+    for (long long k = ch.k0 + threadIdx.x * G; k < ch.k1;
+         k += kThreads * G) {
+      const Group g = group_at<G, VEC>(s, p, k, ch.k1);
+      float num[G];
+#pragma unroll
+      for (int e = 0; e < G; ++e) num[e] = 0.f;
+#pragma unroll
+      for (int i = 0; i < MAXN; ++i) {
+        if (i < s.n) {
+          float xg[G];
+          load_x<G, VEC>(s, i, p, k, g, sc[i], xg);
+#pragma unroll
+          for (int e = 0; e < G; ++e) num[e] = __fmaf_rn(wr[i], xg[e], num[e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < G; ++e) num[e] = __fdiv_rn(num[e], ws);
+      store_f<G, VEC>(vp, k, g, num);
+    }
   }
 }
 
-// Finish: one CTA per partition and 32 peers (grid (P, ceil(n / 32)), 32
-// threads). sq[p, i] = sum over C of the partials, cw[p, i] =
-// clip_weight(sq, tau) * w[i]; wsum = max(sum_i w_i, 1e-30).
-// With d2/d2_part (adaptive step): only partitions with d2[p] > tol2 are
-// touched, d2[p] takes this step's ||dv||^2 and iters[p] counts the step.
-__global__ void finish_weights_kernel(
+// Finish: CTA (p, b) of a (P, B) grid (kThreads threads) takes partition
+// p's peers i = b, b + B, ... sq[p, i] = the fixed tree's sum of peer i's
+// C partials, cw[p, i] = clip_weight(sq, tau) * w[i]; wsum = max(sum_i
+// w_i, 1e-30). With d2/d2_part (adaptive step; B = 1, one CTA a
+// partition): only partitions with d2[p] > tol2 are touched, d2[p] takes
+// this step's ||dv||^2 and iters[p] counts the step. Every thread reads
+// d2[p] before the first barrier; thread 0 writes it after the last.
+__global__ void __launch_bounds__(kThreads) finish_weights_kernel(
     const float* __restrict__ sq_part, int C, int n,
     const float* __restrict__ w, float tau, float* __restrict__ sq_out,
     float* __restrict__ cw_out, float* __restrict__ wsum_out,
-    const float* __restrict__ d2_part, float* __restrict__ d2,
-    int* __restrict__ iters, float tol2) {
-  const int p = blockIdx.x, i = blockIdx.y * blockDim.x + threadIdx.x;
-  __shared__ int active;
-  if (threadIdx.x == 0) active = d2 == nullptr || d2[p] > tol2;
-  __syncthreads();
-  if (active && i < n) {
-    float sq = 0.f;
-    for (int c = 0; c < C; ++c) sq += sq_part[(p * C + c) * n + i];
-    sq_out[p * n + i] = sq;
-    cw_out[p * n + i] = clip_weight(sq, tau) * w[i];
-  }
-  if (i == 0 && active && d2 != nullptr) {
-    float t = 0.f;
-    for (int c = 0; c < C; ++c) t += d2_part[p * C + c];
-    d2[p] = t;
-    iters[p] += 1;
-  }
-  if (p == 0 && i == 0 && wsum_out != nullptr) {
+    const float* __restrict__ d2_part, float* d2, int* __restrict__ iters,
+    float tol2) {
+  const long long p = blockIdx.x;
+  if (p == 0 && blockIdx.y == 0 && threadIdx.x == 0 && wsum_out != nullptr) {
     float t = 0.f;
     for (int j = 0; j < n; ++j) t += w[j];
     *wsum_out = fmaxf(t, 1e-30f);
   }
+  if (d2 != nullptr && !(d2[p] > tol2)) return;  // frozen partition
+  for (int i = blockIdx.y; i < n; i += gridDim.y) {
+    const float sq = fixed_sum(sq_part + (p * n + i) * C, C);
+    if (threadIdx.x == 0) {
+      sq_out[p * n + i] = sq;
+      cw_out[p * n + i] = clip_weight(sq, tau) * w[i];
+    }
+  }
+  if (d2 != nullptr) {
+    const float t = fixed_sum(d2_part + p * C, C);
+    if (threadIdx.x == 0) {
+      d2[p] = t;
+      iters[p] += 1;
+    }
+  }
 }
 
-// Finish the tables: one CTA per partition and 32 peers, as above. dot
-// from partials, sq from partials (sq_part) or a carried buffer (sq_in).
-// CLIP (the Alg. 6 tables of butterfly_clip): s = min(1, tau / ||x - v||)
-// * dot, tau = inf -> dot. Without CLIP (the verified:* digests, which
-// carry no tau): s = dot. norm = ||x - v|| either way.
+// Finish the tables: CTA (j, b) takes row j of the partials (a partition,
+// or a sampled one) and its peers b, b + B, ..., as above. dot from
+// partials, sq from partials (sq_part) or a carried buffer (sq_in). CLIP
+// (the Alg. 6 tables of butterfly_clip): s = min(1, tau / ||x - v||) *
+// dot, tau = inf -> dot. Without CLIP (the verified:* digests, which carry
+// no tau): s = dot. norm = ||x - v|| either way.
 template <bool CLIP>
-__global__ void finish_tables_kernel(
+__global__ void __launch_bounds__(kThreads) finish_tables_kernel(
     const float* __restrict__ dot_part, const float* __restrict__ sq_part,
     const float* __restrict__ sq_in, int C, int n, float tau,
     float* __restrict__ s_out, float* __restrict__ norm_out) {
-  const int p = blockIdx.x, i = blockIdx.y * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float dot = 0.f, sq = 0.f;
-  for (int c = 0; c < C; ++c) dot += dot_part[(p * C + c) * n + i];
-  if (sq_part != nullptr) {
-    for (int c = 0; c < C; ++c) sq += sq_part[(p * C + c) * n + i];
-  } else {
-    sq = sq_in[p * n + i];
+  const long long p = blockIdx.x;
+  for (int i = blockIdx.y; i < n; i += gridDim.y) {
+    const float dot = fixed_sum(dot_part + (p * n + i) * C, C);
+    const float sq = sq_part != nullptr
+                         ? fixed_sum(sq_part + (p * n + i) * C, C)
+                         : sq_in[p * n + i];
+    if (threadIdx.x == 0) {
+      const float nrm = sqrtf(fmaxf(sq, 0.f));
+      if (CLIP) {
+        const float cwv =
+            isinf(tau) ? 1.f : fminf(1.f, tau / fmaxf(nrm, 1e-30f));
+        s_out[p * n + i] = cwv * dot;
+      } else {
+        s_out[p * n + i] = dot;
+      }
+      norm_out[p * n + i] = nrm;
+    }
   }
-  const float nrm = sqrtf(fmaxf(sq, 0.f));
-  if (CLIP) {
-    const float cwv = isinf(tau) ? 1.f : fminf(1.f, tau / fmaxf(nrm, 1e-30f));
-    s_out[p * n + i] = cwv * dot;
-  } else {
-    s_out[p * n + i] = dot;
-  }
-  norm_out[p * n + i] = nrm;
 }
-
-// The finish kernels' grid: a CTA per partition (or sampled row) and per
-// 32 peers.
-inline dim3 finish_grid(int rows, int n) { return dim3(rows, (n + 31) / 32); }
 
 template <int DT>
 Stack<DT> make_stack(const void* x, const float* scales, long long ld,
@@ -518,21 +751,87 @@ Stack<DT> make_stack(const void* x, const float* scales, long long ld,
   return s;
 }
 
+// CTAs of a persistent pass: as many as the card holds at once (its SM
+// count times the kernel's resident CTAs per SM), at most one per chunk.
+// The logical chunk grid, and so every bit, does not depend on it. The
+// card's count is asked once per (kernel, device) and kept; rank threads
+// launch at once, so the table is locked.
+template <typename Kernel>
+inline int persistent_ctas(Kernel kernel, long long chunks) {
+  static std::mutex lock;
+  static std::map<std::pair<const void*, int>, long long> held;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_pair(reinterpret_cast<const void*>(kernel), dev);
+  long long full = 0;
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    const auto it = held.find(key);
+    if (it != held.end()) full = it->second;
+  }
+  if (full == 0) {
+    int sms = 1, per_sm = 1;
+    const bool asked =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+            cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0) ==
+            cudaSuccess;
+    full = static_cast<long long>(sms > 0 ? sms : 1) *
+           (per_sm > 0 ? per_sm : 1);
+    if (asked) {
+      std::lock_guard<std::mutex> guard(lock);
+      held[key] = full;
+    }
+  }
+  return static_cast<int>(chunks < full ? chunks : full);
+}
+
+// Launch a pass over the rows x C chunk grid on its persistent grid.
+template <typename... Params, typename... Args>
+inline void launch_pass(void (*kernel)(Params...), long long chunks,
+                        cudaStream_t st, Args... args) {
+  kernel<<<persistent_ctas(kernel, chunks), kThreads, 0, st>>>(args...);
+}
+
+// Registers, local (spill) bytes and resident CTAs per SM of a kernel.
+template <typename... Params>
+inline int kernel_info(void (*kernel)(Params...), int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel,
+                                                    kThreads, 0));
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace cc
 
-// Instantiate LAUNCH(MAXN) for the smallest register budget that holds n
-// peers; above 32 peers the kTile instantiation walks them in tiles.
-#define CC_DISPATCH_PEERS(n, LAUNCH) \
-  do {                               \
-    if ((n) <= 4) {                  \
-      LAUNCH(4);                     \
-    } else if ((n) <= 8) {           \
-      LAUNCH(8);                     \
-    } else if ((n) <= 16) {          \
-      LAUNCH(16);                    \
-    } else {                         \
-      LAUNCH(cc::kTile);             \
-    }                                \
+// Instantiate LAUNCH(MAXN, VEC) for the smallest register budget that holds
+// n peers, with 16-byte loads (VEC) where the host found every row start
+// aligned and a group holds 4 columns; above 32 peers the kTile
+// instantiation walks them in tiles.
+#define CC_DISPATCH_PEERS(n, vec, LAUNCH) \
+  do {                                    \
+    if ((n) <= 4) {                       \
+      if (vec) {                          \
+        LAUNCH(4, true);                  \
+      } else {                            \
+        LAUNCH(4, false);                 \
+      }                                   \
+    } else if ((n) <= 8) {                \
+      if (vec) {                          \
+        LAUNCH(8, true);                  \
+      } else {                            \
+        LAUNCH(8, false);                 \
+      }                                   \
+    } else if ((n) <= 16) {               \
+      LAUNCH(16, false);                  \
+    } else {                              \
+      LAUNCH(cc::kTile, false);           \
+    }                                     \
   } while (0)

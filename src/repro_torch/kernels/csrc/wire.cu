@@ -16,76 +16,81 @@
 
 #include "centered_clip.cuh"
 
-using cc::kThreads;
-
 namespace {
 
 template <int DT>
 int sq_pass(const void* x, const float* scales, long long ld, long long part,
-            long long d, int n, int P, const float* v, long long cs, int C,
-            float* sq_part, cudaStream_t st) {
+            long long d, int n, int P, long long cs, int C, int vec,
+            const float* v, float* sq_part, cudaStream_t st) {
   const auto s = cc::make_stack<DT>(x, scales, ld, part, d, n);
-  const dim3 grid(C, P);
-#define LAUNCH(N) \
-  cc::sq_pass_kernel<N, DT><<<grid, kThreads, 0, st>>>(s, v, cs, sq_part)
-  CC_DISPATCH_PEERS(n, LAUNCH);
+  const long long chunks = static_cast<long long>(P) * C;
+#define LAUNCH(N, V)                                                   \
+  cc::launch_pass(cc::sq_pass_kernel<N, DT, V>, chunks, st, s, v, cs, C, \
+                  P, sq_part)
+  CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
 }
 
 template <int DT>
 int update(const void* x, const float* scales, long long ld, long long part,
-           long long d, int n, int P, float* v, const float* cw,
-           const float* wsum, long long cs, int C, float* sq_part,
-           float* scratch, cudaStream_t st) {
+           long long d, int n, int P, long long cs, int C, int vec,
+           const float* vin, float* vout, const float* cw, const float* wsum,
+           float* sq_part, float* scratch, cudaStream_t st) {
   const auto s = cc::make_stack<DT>(x, scales, ld, part, d, n);
-  const dim3 grid(C, P);
-#define LAUNCH(N)                                                         \
-  do {                                                                    \
-    if (sq_part != nullptr) {                                             \
-      cc::update_kernel<N, DT, true, false><<<grid, kThreads, 0, st>>>(   \
-          s, v, cw, wsum, cs, sq_part, nullptr, nullptr, 0.f, scratch);   \
-    } else {                                                              \
-      cc::update_kernel<N, DT, false, false><<<grid, kThreads, 0, st>>>(  \
-          s, v, cw, wsum, cs, nullptr, nullptr, nullptr, 0.f, nullptr);   \
-    }                                                                     \
+  const long long chunks = static_cast<long long>(P) * C;
+  const float* no_d2 = nullptr;
+  float* no_part = nullptr;
+#define LAUNCH(N, V)                                                         \
+  do {                                                                       \
+    if (sq_part != nullptr) {                                                \
+      cc::launch_pass(cc::update_kernel<N, DT, true, false, V>, chunks, st,  \
+                      s, vin, vout, cw, wsum, cs, C, P, sq_part, no_part,    \
+                      no_d2, 0.f, scratch);                                  \
+    } else {                                                                 \
+      cc::launch_pass(cc::update_kernel<N, DT, false, false, V>, chunks, st, \
+                      s, vin, vout, cw, wsum, cs, C, P, no_part, no_part,    \
+                      no_d2, 0.f, no_part);                                  \
+    }                                                                        \
   } while (0)
-  CC_DISPATCH_PEERS(n, LAUNCH);
+  CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
 }
 
 template <int DT>
 int dot_pass(const void* x, const float* scales, long long ld,
-             long long part, long long d, int n, int P, const float* v,
-             const float* z, long long cs, int C, float* dot_part,
+             long long part, long long d, int n, int P, long long cs, int C,
+             int vec, const float* v, const float* z, float* dot_part,
              float* sq_part, cudaStream_t st) {
   const auto s = cc::make_stack<DT>(x, scales, ld, part, d, n);
-  const dim3 grid(C, P);
-#define LAUNCH(N)                                                       \
-  do {                                                                  \
-    if (sq_part != nullptr) {                                           \
-      cc::dot_pass_kernel<N, DT, true><<<grid, kThreads, 0, st>>>(      \
-          s, v, z, cs, dot_part, sq_part, nullptr);                     \
-    } else {                                                            \
-      cc::dot_pass_kernel<N, DT, false><<<grid, kThreads, 0, st>>>(     \
-          s, v, z, cs, dot_part, sq_part, nullptr);                     \
-    }                                                                   \
+  const long long chunks = static_cast<long long>(P) * C;
+  const int* all_rows = nullptr;
+#define LAUNCH(N, V)                                                         \
+  do {                                                                       \
+    if (sq_part != nullptr) {                                                \
+      cc::launch_pass(cc::dot_pass_kernel<N, DT, true, V>, chunks, st, s, v, \
+                      z, cs, C, P, dot_part, sq_part, all_rows);             \
+    } else {                                                                 \
+      cc::launch_pass(cc::dot_pass_kernel<N, DT, false, V>, chunks, st, s,   \
+                      v, z, cs, C, P, dot_part, sq_part, all_rows);          \
+    }                                                                        \
   } while (0)
-  CC_DISPATCH_PEERS(n, LAUNCH);
+  CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
 }
 
 template <int DT>
 int mean_pass(const void* x, const float* scales, long long ld,
-              long long part, long long d, int n, int P, const float* w,
-              long long cs, int C, float* v, cudaStream_t st) {
+              long long part, long long d, int n, int P, long long cs, int C,
+              int vec, const float* w, float* v, cudaStream_t st) {
   const auto s = cc::make_stack<DT>(x, scales, ld, part, d, n);
-  const dim3 grid(C, P);
-#define LAUNCH(N) \
-  cc::mean_pass_kernel<N, DT><<<grid, kThreads, 0, st>>>(s, w, cs, v)
-  CC_DISPATCH_PEERS(n, LAUNCH);
+  const long long chunks = static_cast<long long>(P) * C;
+#define LAUNCH(N, V)                                                        \
+  cc::launch_pass(cc::mean_pass_kernel<N, DT, V>, chunks, st, s, w, cs, C, \
+                  P, v)
+  CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
 }
@@ -94,7 +99,9 @@ int mean_pass(const void* x, const float* scales, long long ld,
 
 // ---------------------------------------------------------------------------
 // Plain C launchers (loaded with ctypes), as in centered_clip.cu, with the
-// element type and the (P, n) scales in front.
+// element type and the (P, n) scales in front. `vec`: every (peer,
+// partition) row start of the payload 4 elements aligned (4 bytes of int8,
+// 8 of bf16) and the float32 vectors' 16 bytes.
 // ---------------------------------------------------------------------------
 #define WIRE_DISPATCH(fn, ...)                                   \
   do {                                                           \
@@ -105,43 +112,46 @@ int mean_pass(const void* x, const float* scales, long long ld,
 
 extern "C" int wire_sq_pass(int dtype, const void* x, const float* scales,
                             long long ld, long long part, long long d, int n,
-                            int P, const float* v, long long cs, int C,
-                            float* sq_part, void* stream) {
-  WIRE_DISPATCH(sq_pass, x, scales, ld, part, d, n, P, v, cs, C, sq_part,
-                static_cast<cudaStream_t>(stream));
+                            int P, long long cs, int C, int vec,
+                            const float* v, float* sq_part, void* stream) {
+  WIRE_DISPATCH(sq_pass, x, scales, ld, part, d, n, P, cs, C, vec, v,
+                sq_part, static_cast<cudaStream_t>(stream));
 }
 
-// One CenteredClip iteration, carrying the next iteration's norms when
-// sq_part is given (the fused kernel's update) or not (the two-pass
-// kernel's, #12 over a bf16 stack). The adaptive loop's frozen-partition
-// variant is not built for wire payloads: d2 must be null. `scratch` as in
-// cc_update.
+// One CenteredClip iteration from v_in into v_out, carrying the next
+// iteration's norms when sq_part is given (the fused kernel's update) or
+// not (the two-pass kernel's, #12 over a bf16 stack). The adaptive loop's
+// frozen-partition variant is not built for wire payloads: d2 must be
+// null. `scratch` as in cc_update.
 extern "C" int wire_update(int dtype, const void* x, const float* scales,
                            long long ld, long long part, long long d, int n,
-                           int P, float* v, const float* cw,
-                           const float* wsum, long long cs, int C,
-                           float* sq_part, float* d2_part, const float* d2,
-                           float tol2, float* scratch, void* stream) {
+                           int P, long long cs, int C, int vec,
+                           const float* vin, float* vout, const float* cw,
+                           const float* wsum, float* sq_part, float* d2_part,
+                           const float* d2, float tol2, float* scratch,
+                           void* stream) {
+  (void)tol2;
   if (d2_part != nullptr || d2 != nullptr ||
       (sq_part != nullptr && n > cc::kTile && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  WIRE_DISPATCH(update, x, scales, ld, part, d, n, P, v, cw, wsum, cs, C,
-                sq_part, scratch, static_cast<cudaStream_t>(stream));
+  WIRE_DISPATCH(update, x, scales, ld, part, d, n, P, cs, C, vec, vin, vout,
+                cw, wsum, sq_part, scratch,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int wire_dot_pass(int dtype, const void* x, const float* scales,
                              long long ld, long long part, long long d, int n,
-                             int P, const float* v, const float* z,
-                             long long cs, int C, float* dot_part,
+                             int P, long long cs, int C, int vec,
+                             const float* v, const float* z, float* dot_part,
                              float* sq_part, void* stream) {
-  WIRE_DISPATCH(dot_pass, x, scales, ld, part, d, n, P, v, z, cs, C,
+  WIRE_DISPATCH(dot_pass, x, scales, ld, part, d, n, P, cs, C, vec, v, z,
                 dot_part, sq_part, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int wire_mean_pass(int dtype, const void* x, const float* scales,
                               long long ld, long long part, long long d,
-                              int n, int P, const float* w, long long cs,
-                              int C, float* v, void* stream) {
-  WIRE_DISPATCH(mean_pass, x, scales, ld, part, d, n, P, w, cs, C, v,
+                              int n, int P, long long cs, int C, int vec,
+                              const float* w, float* v, void* stream) {
+  WIRE_DISPATCH(mean_pass, x, scales, ld, part, d, n, P, cs, C, vec, w, v,
                 static_cast<cudaStream_t>(stream));
 }

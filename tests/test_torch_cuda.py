@@ -5,8 +5,10 @@ launch counted; the wire-payload twins #7 and #8 give the bits of #1 and
 for row, the bits of #2 (tau > 0) or #6 (tau = 0) at the sampled
 partitions; the single-partition kernels #10, #11 and #12 give the bits of
 #1, #2 and #4 at one partition, #12 also over a bf16 stack and with a tau
-schedule; and every kernel above 32 peers (n = 33 and 64, the peer-tiled
-passes). Marked ``cuda``; skips without a CUDA device. Run on the GPU
+schedule; every kernel above 32 peers (n = 33 and 64, the peer-tiled
+passes) and at partition lengths around a chunk boundary; and one stack
+gives the same bits at every storage offset and row stride. Marked
+``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -229,19 +231,13 @@ def test_centered_clip_kernel_rejects_bad_inputs_on_card(cuda):
     assert kc.LAUNCHES["centered_clip"] == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [33, 64])
-def test_every_kernel_past_32_peers_on_card(cuda, n):
-    """The peer-tiled passes: kernels #1-#12 at n = 33 and 64 peers (n
-    partitions, ragged) against their plain versions; the wire kernels
-    give their float32 twins' bits, #9 gives #2/#6's at its rows, and
-    the single-partition kernels #10-#12 give #1/#2/#4's."""
+def _check_every_kernel(g, n, z, v, w, taus):
+    """Kernels #1-#12 over the (n, d) stack g read as n partitions,
+    against their plain versions; the wire kernels give their float32
+    twins' bits, #9 gives #2/#6's at its rows, and the single-partition
+    kernels #10-#12 give #1/#2/#4's."""
     from repro_torch.core import compression
 
-    d = n * 301 - 5
-    g, z, v, w = _inputs(n, d, cuda)
-    g[1, :kc.part_len(d, n)] = 0.0  # an all-zero payload
-    taus = [1.0] * 3
     _check(lambda: kc.butterfly_clip_fused(g, n, taus, z, None, w, v),
            lambda: kc.butterfly_clip_fused_plain(g, n, taus, z, None, w, v),
            "butterfly_clip_fused")
@@ -277,7 +273,7 @@ def test_every_kernel_past_32_peers_on_card(cuda, n):
         a = kc.mean_digest_fused_dequant(q, sc, n, z, w)
         b = kc.mean_digest_fused(xd, n, z, w)
         assert all(torch.equal(x, y) for x, y in zip(a, b)), codec
-    rows = [n - 1, 0, 2]
+    rows = [n - 1, 0, 2 % n]
     for tau in (0.0, 1.0):
         _check(lambda: kc.digest_tables_rows(g, n, v, z, rows, tau),
                lambda: kc.digest_tables_rows_plain(g, n, v, z, rows, tau),
@@ -285,7 +281,7 @@ def test_every_kernel_past_32_peers_on_card(cuda, n):
     s, norms = kc.digest_tables_rows(g, n, v, z, rows, 1.0)
     fs, fn = kc.verify_tables_batched(g, n, v, z, 1.0)
     assert torch.equal(s, fs[rows]) and torch.equal(norms, fn[rows])
-    part = kc.part_len(d, n)
+    part = kc.part_len(g.shape[1], n)
     xs = g[:, :part].contiguous()
     _check(lambda: kc.centered_clip_fused(xs, taus, z[0], None, w, v[0]),
            lambda: kc.centered_clip_fused_plain(xs, taus, z[0], None, w,
@@ -302,3 +298,88 @@ def test_every_kernel_past_32_peers_on_card(cuda, n):
     assert all(torch.equal(x, y[0]) for x, y in zip(a, b))
     assert torch.equal(kc.centered_clip(xs, taus, w, v[0]),
                        kc.butterfly_clip(xs, 1, taus, w, v[:1])[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 64])
+def test_every_kernel_past_32_peers_on_card(cuda, n):
+    """The peer-tiled passes: kernels #1-#12 at n = 33 and 64 peers (n
+    partitions, ragged) against their plain versions; the wire kernels
+    give their float32 twins' bits, #9 gives #2/#6's at its rows, and
+    the single-partition kernels #10-#12 give #1/#2/#4's."""
+    d = n * 301 - 5
+    g, z, v, w = _inputs(n, d, cuda)
+    g[1, :kc.part_len(d, n)] = 0.0  # an all-zero payload
+    _check_every_kernel(g, n, z, v, w, [1.0] * 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [0, 3])
+@pytest.mark.parametrize("part", [kc.CHUNK - kc.GROUP, kc.CHUNK + kc.GROUP,
+                                  2 * kc.CHUNK + 2, 4097])
+def test_every_kernel_at_chunk_edges_on_card(cuda, part, ragged):
+    """Kernels #1-#12 over 4 peers and 4 partitions whose length lies one
+    group either side of a chunk boundary or is not a multiple of 4 (the
+    column-by-column body), with and without a ragged tail in the last
+    partition."""
+    n = 4
+    d = n * part - ragged
+    g, z, v, w = _inputs(n, d, cuda)
+    g[1, :part] = 0.0  # an all-zero payload
+    assert kc.part_len(d, n) == part
+    _check_every_kernel(g, n, z, v, w, [1.0] * 3)
+
+
+def _at(x, offset):
+    """x's values at storage offset ``offset`` of a wider buffer whose row
+    stride (a multiple of 4, not x's width) keeps only offset 0 aligned for
+    the 16-byte loads."""
+    n, d = x.shape
+    width = -(-(d + offset) // 4) * 4 + 4
+    big = torch.zeros((n, width), dtype=x.dtype, device=x.device)
+    big[:, offset:offset + d] = x
+    return big[:, offset:offset + d]
+
+
+def _vec_at(v, offset):
+    """A (rows, part) float32 vector at storage offset ``offset``
+    (contiguous, so the kernels read it in place, off 16 bytes unless
+    offset is a multiple of 4)."""
+    flat = torch.zeros(v.numel() + offset, device=v.device)
+    flat[offset:] = v.reshape(-1)
+    return flat[offset:].view(v.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d", [(4, 4 * 8192), (4, 4 * 8192 - 3),
+                                  (5, 5 * 1001 - 3), (8, 8 * 4100)])
+def test_same_bits_at_every_storage_offset_and_row_stride_on_card(cuda, n, d):
+    """One stack, stored contiguous and at storage offsets 0-3 of wider
+    rows (row stride != d), with v0 and z also off 16 bytes at offset 1:
+    #1, #10, #2, #11, #5 and, over int8 and bf16 payloads, #7 and #8 give
+    the same bits every time (the 16-byte and the column-by-column bodies
+    sum in one order)."""
+    g, z, v, w = _inputs(n, d, cuda)
+    part = kc.part_len(d, n)
+    taus = [1.0] * 4
+    wire = {codec: _wire(g, n, codec) for codec in ("int8", "bf16")}
+
+    def outputs(x, zz, vv, qs):
+        xs = x[:, :part]
+        out = [*kc.butterfly_clip_fused(x, n, taus, zz, None, w, vv),
+               *kc.centered_clip_fused(xs, taus, zz[0], None, w, vv[0]),
+               *kc.verify_tables_batched(x, n, vv, zz, 1.0),
+               *kc.verify_tables(xs, vv[0], zz[0], 1.0),
+               *kc.mean_digest_fused(x, n, zz, w)]
+        for q, sc in qs:
+            out += [*kc.butterfly_clip_fused_dequant(q, sc, n, taus, zz,
+                                                     None, w, vv),
+                    *kc.mean_digest_fused_dequant(q, sc, n, zz, w)]
+        return out
+
+    ref = outputs(g, z, v, wire.values())
+    for offset in range(4):
+        zz, vv = (_vec_at(z, 1), _vec_at(v, 1)) if offset == 1 else (z, v)
+        got = outputs(_at(g, offset), zz, vv,
+                      [(_at(q, offset), sc) for q, sc in wire.values()])
+        assert all(torch.equal(a, b) for a, b in zip(ref, got)), offset
