@@ -7,7 +7,8 @@ Phases, each printing its own line:
   1. the card (name and power limit from nvidia-smi) and the build of the
      CUDA kernels from ``src/repro_torch/kernels/csrc``, with its time;
      the float32 passes' registers, local (spill) bytes and resident CTAs
-     per SM;
+     per SM, and those of the two-phase clip's passes (#4, #12) with their
+     dynamic shared memory at n = 4, 8 and 16, each body;
   2. every kernel against its plain PyTorch version on the card, at the
      slice's shapes (4 peers x 4 partitions of full-width ALBERT-large), two
      ragged small shapes and two past 32 peers (33 and 64 peers, d = 2^20
@@ -22,13 +23,15 @@ Phases, each printing its own line:
      order, tau in {0, 1, inf}, an all-zero payload among the sampled
      partitions) gives the bits of #2 (tau > 0) or #6 (tau = 0) at the
      sampled rows; #12 over each whole (n, d) stack with a warm start,
-     float32 (timed at the full-width (4, d)) and bfloat16;
-     and the streaming-read yardstick, torch.sum(0) over the (4, d) stack
-     and the (4, d/4) owner stack;
+     float32 (timed at the full-width (4, d)) and bfloat16; #4 at the
+     (16, d) stack with 16 partitions (timed); and the streaming-read
+     yardstick, torch.sum(0) over the (4, d) stack and the (4, d/4) owner
+     stack;
      2b. with ``--breakdown`` only, in place of every other phase: the
      fused clip's passes one by one, #1 at the (4, d) stack and #10 at
      the (4, d/4) owner stack, each pass and each finish timed on its own
-     with CUDA events, and the yardstick;
+     with CUDA events, then the two-phase clip's, #4 at the (4, d) stack
+     and #12 at the (16, d) stack, each on both bodies, and the yardstick;
   3. the main path: ``repro_torch.launch.train_byzantine`` on full-width
      ALBERT-large (bf16 storage, d = 78,223,360), 4 peers, one sign-flip
      attacker, 2 validators, 5 clip iterations, seq 128, batch 4, 6 steps;
@@ -65,7 +68,8 @@ Phases, each printing its own line:
      78,223,360 (16 peers, 3 attackers at -10 mu): its lines, every fixed
      budget through #12 (``clip_iters.KERNEL_CALLS`` launches), the runs to
      tolerance capped at FIG9_CAP, the 20-iteration timing; then #12 held
-     against its plain version at that (16, d) stack;
+     against its plain version at that (16, d) stack and timed, with its
+     bound;
   8. the §4.1 toy, ``train_byzantine`` without ``--model`` (the host
      loop), sign flip from step 10, 60 steps: btard with 16 peers (exactly
      peers 9-15 banned, #1 60 launches), with 40 peers (33-39, #1 through
@@ -243,8 +247,28 @@ def kernel_cases(grads, n_parts, tau, weights, gen):
         ("butterfly_clip",
          lambda: kc.butterfly_clip(grads, n_parts, taus, weights, v0),
          lambda: kc.butterfly_clip_plain(grads, n_parts, taus, weights, v0),
-         (nd + 2 * pd) * 4, nd * 7 * it, (2 * it * nd + 3 * it * pd) * 4),
+         (nd + 2 * pd) * 4, two_phase_ops(nd, it),
+         two_phase_moved(n, nd * 4, pd * 4, it, warm=True)),
     ]
+
+
+def two_phase_ops(nd, it):
+    """Float32 operations of the two-phase clip (#4, #12) over nd stack
+    elements at ``it`` iterations: 3 an element (a subtract and a fused
+    multiply-add) for each iteration's norms and 3 for its update, 6 it."""
+    return 6 * nd * it
+
+
+def two_phase_moved(n, stack_bytes, v_bytes, it, warm):
+    """Bytes the two-phase clip (#4, #12) moves per call at ``it``
+    iterations. Up to 32 peers one read of the stack a pass: the norms'
+    prologue and ``it`` updates, v0 read by the prologue and the first
+    update when warm, v read and written by the others, (it + 1) S + (2 it
+    + 1) V warm, (2 it - 1) V cold. Above 32 peers a norm pass and an
+    update an iteration: 2 it S + 3 it V warm, less 2V cold."""
+    if n <= 32:
+        return (it + 1) * stack_bytes + (2 * it + (1 if warm else -1)) * v_bytes
+    return 2 * it * stack_bytes + (3 * it - (0 if warm else 2)) * v_bytes
 
 
 def digest_and_wire_cases(grads, n_parts, tau, weights, gen):
@@ -379,7 +403,8 @@ def clip_cases(grads, tau, weights, gen):
     """Kernel #12 over the whole (n, d) stack with a warm start, float32
     and (untimed) bfloat16: (name, tag, kernel call, plain call, bound
     bytes, operations, moved bytes), as in ``kernel_cases``; the passes
-    are #4's at one partition, so the bytes are #4's with V = d."""
+    are #4's at one partition, so the bytes are #4's with V = d (S in the
+    stack's own dtype)."""
     from repro_torch.kernels import centered_clip as kc
 
     n, d = grads.shape
@@ -392,11 +417,13 @@ def clip_cases(grads, tau, weights, gen):
         ("centered_clip", "f32",
          lambda: kc.centered_clip(grads, taus, weights, v0),
          lambda: kc.centered_clip_plain(grads, taus, weights, v0),
-         (nd + 2 * d) * 4, nd * 7 * it, (2 * it * nd + 3 * it * d) * 4),
+         (nd + 2 * d) * 4, two_phase_ops(nd, it),
+         two_phase_moved(n, nd * 4, d * 4, it, warm=True)),
         ("centered_clip", "bf16",
          lambda: kc.centered_clip(xb, taus, weights, v0),
          lambda: kc.centered_clip_plain(xb, taus, weights, v0),
-         nd * 2 + 2 * d * 4, nd * 7 * it, 2 * it * nd * 2 + 3 * it * d * 4),
+         nd * 2 + 2 * d * 4, two_phase_ops(nd, it),
+         two_phase_moved(n, nd * 2, d * 4, it, warm=True)),
     ]
 
 
@@ -409,7 +436,7 @@ def stack(n, d, gen, dev):
 
 
 def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
-         twin=None):
+         twin=None, phase="phase 2"):
     """Run one kernel case: bitwise repeatable, within tolerance of its
     plain version, bitwise equal to its float32 twin where it has one;
     timed (median of 5 calls) and its bound computed when ``timed``."""
@@ -441,11 +468,22 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
     st["moved_bytes"] = moved(out1) if callable(moved) else moved
     if name == "adaptive_clip_step":
         st["iters"] = int(out1[1].max())
-    print(f"phase 2: {tag}: {st['ms']:.3f} ms (plain {st['plain_ms']:.3f}"
+    print(f"{phase}: {tag}: {st['ms']:.3f} ms (plain {st['plain_ms']:.3f}"
           f" ms, bound {st['bound_ms']:.3f} ms by {st['bound_by']}; moves "
           f"{st['moved_bytes']} bytes, "
           f"{st['moved_bytes'] / st['ms'] / 1e9:.3f} TB/s), max abs err "
           f"{err:.3e}, relative {rel:.3e}", flush=True)
+
+
+def fold_at_16(stats, name):
+    """Fold the timed 16-peer case of ``name`` (kept in its own stats row,
+    ``name@16``) into ``name``'s row: its errors into the row's maxima, its
+    numbers under ``at_16_peers``."""
+    side, main = stats.pop(f"{name}@16"), stats[name]
+    for k in ("max_abs_err", "max_rel_err"):
+        main[k] = max(main[k], side[k])
+    main["at_16_peers"] = {k: side[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "moved_bytes")}
 
 
 def phase_kernels(dev):
@@ -500,6 +538,24 @@ def phase_kernels(dev):
                  d == D_FULL and tau == 1.0, twin)
         del grads, zero_payload
         torch.cuda.empty_cache()
+    # #4 at the (16, d) stack read as 16 partitions (the paper's 16 peers:
+    # the two-phase clip's staged body), timed
+    n = n_parts = 16
+    grads = stack(n, D_FULL, gen, dev)
+    part = kc.part_len(D_FULL, n_parts)
+    v0 = (0.1 / math.sqrt(part)) * torch.randn((n_parts, part), generator=gen,
+                                               device=dev)
+    taus = [1.0] * CLIP_ITERS
+    nd, pd = n * D_FULL, n_parts * part
+    hold(stats, "butterfly_clip@16",
+         f"butterfly_clip n={n} d={D_FULL} P={n_parts} tau=1.0",
+         lambda: kc.butterfly_clip(grads, n_parts, taus, None, v0),
+         lambda: kc.butterfly_clip_plain(grads, n_parts, taus, None, v0),
+         (nd + 2 * pd) * 4, two_phase_ops(nd, CLIP_ITERS),
+         two_phase_moved(n, nd * 4, pd * 4, CLIP_ITERS, warm=True), True)
+    fold_at_16(stats, "butterfly_clip")
+    del grads, v0
+    torch.cuda.empty_cache()
     keep = ("ms", "plain_ms", "bound_ms", "moved_bytes")
     for name, codec in PATH_CODEC.items():
         stats[name]["by_codec"] = {codec: {k: stats[name][k] for k in keep}}
@@ -517,7 +573,7 @@ def phase_kernels(dev):
           "equals #2/#6 at the sampled rows bit for bit "
           f"({len(shapes)} shapes {[s[:2] for s in shapes]} x tau {{1, inf}} "
           "(#9 also 0) x weights x codecs {int8, bf16}; #12 over f32 and "
-          "bf16 stacks)", flush=True)
+          "bf16 stacks; #4 also at (16, d) with 16 partitions)", flush=True)
     kc.reset_launch_counts()
     return stats
 
@@ -528,21 +584,29 @@ def phase_kernels(dev):
 # cc_pass_info's codes (csrc/centered_clip.cu)
 PASS_INFO = ((0, "sq pass"), (1, "update with norms"), (2, "dot pass"),
              (3, "dot pass with norms"), (4, "mean pass"),
-             (5, "finish weights"), (6, "finish tables"), (7, "update"),
+             (5, "finish weights"), (6, "finish tables"),
              (8, "update with norms and dv"))
+# the two-phase clip's passes (#4, #12)
+TWO_PHASE_INFO = ((9, "prologue"), (7, "update with next norms"),
+                  (10, "last update"))
+# (n, vec) of the two-phase passes' report: the staged body (vec) and the
+# global body at 4 and 16 peers, the staged body at 8
+TWO_PHASE_BODIES = ((4, 1), (4, 0), (8, 1), (16, 1), (16, 0))
 
 
 def print_pass_info():
     """Registers, local (spill) bytes and resident CTAs per SM of the
     float32 passes, as the build made them: n = 4 with and without the
     16-byte loads (the fused clip's main-path instantiation is n = 4 with
-    them), n = 8 with them, n = 16 (groups of one column)."""
+    them), n = 8 with them, n = 16 (groups of one column); then the
+    two-phase clip's passes, with their dynamic shared memory, at each
+    (n, body) of ``TWO_PHASE_BODIES``."""
     import ctypes
 
     from repro_torch.kernels import build
 
     lib = build.load("centered_clip")
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     for n, vec in ((4, 1), (4, 0), (8, 1), (16, 0)):
         parts = []
         for code, what in PASS_INFO:
@@ -554,6 +618,16 @@ def print_pass_info():
                          f"{out[2]} CTAs/SM")
         print(f"phase 1: float32 passes at n={n} vec={vec}: "
               + "; ".join(parts), flush=True)
+    for n, vec in TWO_PHASE_BODIES:
+        parts = []
+        for code, what in TWO_PHASE_INFO:
+            check(lib.cc_pass_info(code, n, vec, out) == 0,
+                  f"pass info of the two-phase {what} at n={n} vec={vec}")
+            parts.append(f"{what} {out[0]} regs, {out[1]} local bytes, "
+                         f"{out[2]} CTAs/SM, {out[3]} B dynamic shared")
+        body = "staged" if out[3] else "global"
+        print(f"phase 1: two-phase clip passes at n={n} vec={vec} "
+              f"({body}): " + "; ".join(parts), flush=True)
 
 
 class _Timed:
@@ -589,20 +663,34 @@ def yardstick(stacks):
               "stack once, writes one row)", flush=True)
 
 
+def off16(xs):
+    """A copy of the stack stored one element past a 16-byte boundary, a
+    row stride of d + 1: the wrappers send it to the bodies that load row
+    by row (the two-phase clip's global body)."""
+    big = torch.empty((xs.shape[0], xs.shape[1] + 1), dtype=xs.dtype,
+                      device=xs.device)
+    big[:, 1:].copy_(xs)
+    return big[:, 1:]
+
+
 def pass_breakdown(dev):
     """#1 at the (4, d) stack (4 partitions) and #10 at one launch owner's
-    (4, d/4) stack, 5 iterations at tau 1 with a warm start, through the
-    public wrappers with the libraries behind a timing stand-in: every
-    pass and every finish timed on its own with CUDA events around its
-    launch, median over 3 calls after one warm-up; every call's output
-    held against the plain version. Then the streaming-read yardstick."""
+    (4, d/4) stack, then the two-phase clip, #4 at the (4, d) stack and #12
+    at Fig. 9's (16, d) stack, each aligned (the staged body) and one
+    element off 16 bytes (the global body); 5 iterations at tau 1 with a
+    warm start, through the public wrappers with the libraries behind a
+    timing stand-in: every pass and every finish timed on its own with
+    CUDA events around its launch, median over 3 calls after one warm-up;
+    every call's output held against the plain version, and the global
+    body's bits equal to the staged body's. Then the streaming-read
+    yardstick."""
     from repro_torch.kernels import build
     from repro_torch.kernels import centered_clip as kc
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    n, P = 4, 4
-    grads = stack(n, D_FULL, gen, dev)
+    P = 4
+    grads = stack(4, D_FULL, gen, dev)
     part = kc.part_len(D_FULL, P)
     owner = grads[:, :part].contiguous()
     taus = [1.0] * CLIP_ITERS
@@ -622,47 +710,72 @@ def pass_breakdown(dev):
                                                    None, v0[0]))]
     real, log = build.load, []
     build.load = lambda name="centered_clip": _Timed(real(name), log)
+
+    def run(name, tag, xs, n_parts, kern, plain):
+        ref = as_tuple(plain())
+        runs, whole = [], []
+        for _ in range(4):
+            log.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = as_tuple(kern())
+            end.record()
+            torch.cuda.synchronize()
+            check(close(out, ref), f"breakdown {tag}: disagrees with plain")
+            runs.append([t0.elapsed_time(t1) for _, t0, t1 in log])
+            whole.append(start.elapsed_time(end))
+        whats = [w for w, _, _ in log]
+        ms = [statistics.median(r[i] for r in runs[1:])
+              for i in range(len(whats))]
+        n = xs.shape[0]
+        geo = kc.chunk_grid(n, xs.shape[1], n_parts)
+        nd, pd = xs.numel() * xs.element_size(), n_parts * geo.part * 4
+        # a two-phase clip pass's rate is that of its median pass, an update
+        moved = {"sq_pass": nd + pd, "update": nd + 2 * pd,
+                 "dot_pass": nd + 2 * pd, "clip_pass": nd + 2 * pd}
+
+        def show(what):
+            t = [m for w, m in zip(whats, ms) if w == what]
+            rate = (f" ({moved[what] / statistics.median(t) / 1e9:.3f}"
+                    " TB/s)" if what in moved else "")
+            return f"{what} {' '.join(f'{x:.3f}' for x in t)} ms" + rate
+
+        print(f"phase 2 breakdown: {name} ({tag}) n={n} d={xs.shape[1]} "
+              f"P={n_parts} chunk={geo.cs} C={geo.C}: "
+              + "; ".join(show(w) for w in dict.fromkeys(whats))
+              + f"; parts sum to {sum(ms):.3f} ms, whole call "
+              f"{statistics.median(whole[1:]):.3f} ms (events between "
+              "launches)", flush=True)
+        return out
+
     try:
-        for name, tag, xs, n_parts, kern, plain in cases:
-            ref = as_tuple(plain())
-            runs, whole = [], []
-            for _ in range(4):
-                log.clear()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = as_tuple(kern())
-                end.record()
-                torch.cuda.synchronize()
-                check(close(out, ref), f"breakdown {tag}: disagrees with "
-                      "plain")
-                runs.append([t0.elapsed_time(t1) for _, t0, t1 in log])
-                whole.append(start.elapsed_time(end))
-            whats = [w for w, _, _ in log]
-            ms = [statistics.median(r[i] for r in runs[1:])
-                  for i in range(len(whats))]
-            geo = kc.chunk_grid(n, xs.shape[1], n_parts)
-            nd, pd = xs.numel() * 4, n_parts * geo.part * 4
-            moved = {"sq_pass": nd + pd, "update": nd + 2 * pd,
-                     "dot_pass": nd + 2 * pd}
-
-            def show(what):
-                t = [m for w, m in zip(whats, ms) if w == what]
-                rate = (f" ({moved[what] / statistics.median(t) / 1e9:.3f}"
-                        " TB/s)" if what in moved else "")
-                return f"{what} {' '.join(f'{x:.3f}' for x in t)} ms" + rate
-
-            print(f"phase 2 breakdown: {name} ({tag}) n={n} "
-                  f"d={xs.shape[1]} P={n_parts} chunk={geo.cs} C={geo.C}: "
-                  + "; ".join(show(w) for w in dict.fromkeys(whats))
-                  + f"; parts sum to {sum(ms):.3f} ms, whole call "
-                  f"{statistics.median(whole[1:]):.3f} ms (events between "
-                  "launches)", flush=True)
+        for case in cases:
+            run(*case)
+        g16 = stack(16, D_FULL, gen, dev)
+        v16 = (0.1 / math.sqrt(D_FULL)) * torch.randn(D_FULL, generator=gen,
+                                                      device=dev)
+        for name, tag, xs, n_parts, kern, plain in (
+                ("butterfly_clip", "#4", grads, P,
+                 lambda xs: kc.butterfly_clip(xs, P, taus, None, v0),
+                 lambda: kc.butterfly_clip_plain(grads, P, taus, None, v0)),
+                ("centered_clip", "#12", g16, 1,
+                 lambda xs: kc.centered_clip(xs, taus, None, v16),
+                 lambda: kc.centered_clip_plain(g16, taus, None, v16))):
+            staged = run(name, f"{tag}, staged body", xs, n_parts,
+                         lambda: kern(xs), plain)
+            off = off16(xs)
+            flat = run(name, f"{tag}, global body", off, n_parts,
+                       lambda: kern(off), plain)
+            check(all(torch.equal(a, b) for a, b in zip(staged, flat)),
+                  f"breakdown {tag}: the global body's bits are not the "
+                  "staged body's")
+            del off
     finally:
         build.load = real
         kc.reset_launch_counts()
     yardstick((("(4, d)", grads), ("(4, d/4) owner", owner)))
-    del grads, owner
+    del grads, owner, g16
     torch.cuda.empty_cache()
 
 
@@ -898,9 +1011,9 @@ def run_fig9(label, stats):
     tolerance capped at FIG9_CAP. Checks: every error finite, more
     iterations never worse than one, the warm start never slower than the
     cold one; then, with the counts read, #12 at this path's (16, d)
-    stack (20 iterations at tau 5, the timed call) held against its plain
-    version as in phase 2, its errors folded into ``stats``. Returns the
-    launch counts."""
+    stack (20 iterations at tau 5 from a cold start, the timed call) held
+    against its plain version and timed as in phase 2, folded into #12's
+    row of ``stats`` (``at_16_peers``). Returns the launch counts."""
     from repro_torch.kernels import centered_clip as kc
     from repro_torch.launch import clip_iters
 
@@ -928,9 +1041,15 @@ def run_fig9(label, stats):
     torch.cuda.empty_cache()
     xs, _ = clip_iters.problem(D_FULL, device="cuda")
     taus = [5.0] * clip_iters.TIMING_ITERS
-    hold(stats, "centered_clip", f"{label}: centered_clip n=16 d={D_FULL} "
-         f"{len(taus)} iterations", lambda: kc.centered_clip(xs, taus),
-         lambda: kc.centered_clip_plain(xs, taus), 0, 0, 0, False)
+    nd = xs.numel()
+    hold(stats, "centered_clip@16", f"centered_clip n=16 d={D_FULL} "
+         f"{len(taus)} iterations tau=5 cold",
+         lambda: kc.centered_clip(xs, taus),
+         lambda: kc.centered_clip_plain(xs, taus), (nd + D_FULL) * 4,
+         two_phase_ops(nd, len(taus)),
+         two_phase_moved(16, nd * 4, D_FULL * 4, len(taus), warm=False), True,
+         phase=label)
+    fold_at_16(stats, "centered_clip")
     print(f"{label}: #12 at the (16, d) stack within rtol=atol={RTOL:g} of "
           f"its plain version and bitwise repeatable (max abs err "
           f"{stats['centered_clip']['max_abs_err']:.3e} over every #12 "
@@ -979,7 +1098,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--breakdown", action="store_true",
                     help="only build, print the passes' resources and run "
-                    "the per-pass breakdown of #1 and #10 and the yardstick")
+                    "the per-pass breakdown of #1, #10, #4 and #12 and the "
+                    "yardstick")
     args = ap.parse_args()
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1145,6 +1265,8 @@ def main():
         if name in PATH_CODEC:
             row["codec"] = PATH_CODEC[name]
             row["by_codec"] = st["by_codec"]
+        if "at_16_peers" in st:
+            row["at_16_peers"] = st["at_16_peers"]
         rows.append(row)
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -37,6 +37,7 @@ SIGNATURES = {
     "centered_clip": {
         "cc_sq_pass": _STACK + _GRID + (_P, _P, _P),
         "cc_update": _STACK + _GRID + (_P,) * 7 + (_F, _P, _P),
+        "cc_clip_pass": _STACK + _GRID + (_P,) * 6,
         "cc_dot_pass": _STACK + _GRID + (_P,) * 5,
         "cc_rows_dot_pass": _STACK + _GRID + (_P, _I) + (_P,) * 5,
         "cc_mean_pass": _STACK + _GRID + (_P, _P, _P),
@@ -52,6 +53,7 @@ SIGNATURES = {
         "wire_sq_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P, _P, _P),
         "wire_update": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 7
         + (_F, _P, _P),
+        "wire_clip_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 6,
         "wire_dot_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 5,
         "wire_mean_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P, _P, _P),
     },

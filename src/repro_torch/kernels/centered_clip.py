@@ -43,11 +43,14 @@ in tiles of 32 (``csrc/centered_clip.cuh``, "Peer tiles").
 
 Every pass sums over ``chunk_grid(n, d, n_parts)``: chunks of CHUNK
 columns, a constant, so the reduction order and every bit follow from
-(n, d, n_parts) and not from the card the kernels run on. A pass loads 4
-columns of a peer at once (16 bytes of float32) where every row start of
-the stack and of the float32 vectors is aligned, and column by column, in
-the same order, where not: the same stack gives the same bits at any
-storage offset or row stride. The fixed budgets (#1, #4, #7, #10, #12)
+(n, d, n_parts) and not from the card the kernels run on (the two-phase
+clip's passes over ``clip_grid``, the same chunks with groups of 4 up to
+32 peers). A pass loads 4 columns of a peer at once (16 bytes of float32)
+where every row start of the stack and of the float32 vectors is aligned,
+and column by column, in the same order, where not: the same stack gives
+the same bits at any storage offset or row stride. Up to 32 peers the
+two-phase clip copies its rows into shared memory first where every row
+start is 16-byte aligned. The fixed budgets (#1, #4, #7, #10, #12)
 read v0 in place and have their first update write v; the adaptive loop
 (#3) updates a copy in place.
 
@@ -90,7 +93,8 @@ WIRE_DTYPES = {torch.int8: 1, torch.bfloat16: 2}
 TILE = 32
 # columns a thread takes at a time up to 8 peers, one 16-byte load of
 # float32 per peer where the stack allows it (csrc: cc::group_cols); 1
-# above 8 peers
+# above 8 peers. The two-phase clip's passes take groups of 4 up to TILE
+# peers (``clip_grid``).
 GROUP = 4
 # columns of a logical chunk, each the source of one (n,) row of partial
 # sums: a constant, not derived from the card's SM count, so the reduction
@@ -117,6 +121,15 @@ def chunk_grid(n: int, d: int, n_parts: int) -> Geometry:
     walk it (the card's SM count times the resident CTAs) does not enter."""
     part = part_len(d, n_parts)
     return Geometry(part, CHUNK, -(-part // CHUNK), GROUP if n <= 8 else 1)
+
+
+def clip_grid(n: int, d: int, n_parts: int) -> Geometry:
+    """The chunk grid of the two-phase clip's passes (#4, #12): that of
+    ``chunk_grid``, with groups of 4 columns up to TILE peers (thread t
+    takes columns 4t .. 4t + 3 of each 1024-column sub-tile of its chunk)
+    and of one above (the peer-tiled passes)."""
+    return chunk_grid(n, d, n_parts)._replace(
+        group=GROUP if n <= TILE else 1)
 
 
 def reset_launch_counts():
@@ -280,12 +293,18 @@ class _Stack:
         self.part, self.cs, self.C, group = chunk_grid(self.n, self.d, self.P)
         self.device = grads.device
         self.grads = grads
-        ld = grads.stride(0)
+        ld, es = grads.stride(0), grads.element_size()
+
+        def rows_aligned(nbytes):
+            return (ld * es % nbytes == 0 and self.part * es % nbytes == 0
+                    and grads.data_ptr() % nbytes == 0)
+
         # 16-byte loads: every (peer, partition) row start aligned to a
         # group of 4 elements (16 bytes of float32, 4 of int8, 8 of bf16)
-        self.vec = (group == GROUP and ld % GROUP == 0
-                    and self.part % GROUP == 0
-                    and grads.data_ptr() % (GROUP * grads.element_size()) == 0)
+        self.vec = group == GROUP and rows_aligned(GROUP * es)
+        # the two-phase clip up to TILE peers copies whole 16-byte units of
+        # its rows into shared memory: every row start on 16 bytes
+        self.clip_vec = self.n <= TILE and rows_aligned(16)
         self.lib = build.load("centered_clip")
         self.stream = _stream(self.device)
         stack = (ld, self.part, self.d, self.n, self.P, self.cs, self.C)
@@ -301,12 +320,13 @@ class _Stack:
     def _call(self, what, fn, *args):
         _check(fn(*args, self.stream), what)
 
-    def _pass(self, name, vectors, *args):
-        """Launch pass ``name``, with 16-byte loads when the stack and every
-        float32 vector it reads or writes (``vectors``; None for a zero
-        vector that is not read) start 16-byte aligned."""
-        vec = self.vec and all(t is None or t.data_ptr() % 16 == 0
-                               for t in vectors)
+    def _pass(self, name, vectors, *args, vec=None):
+        """Launch pass ``name``, with 16-byte loads when the stack (``vec``,
+        by default ``self.vec``) and every float32 vector it reads or writes
+        (``vectors``; None for a zero vector that is not read) start 16-byte
+        aligned."""
+        vec = ((self.vec if vec is None else vec)
+               and all(t is None or t.data_ptr() % 16 == 0 for t in vectors))
         self._call(f"{name} ({self.prefix})",
                    getattr(self.passes, self.prefix + name), *self.args,
                    int(vec), *args)
@@ -346,18 +366,26 @@ class _Stack:
     def sq_pass(self, v, sq_part):
         self._pass("sq_pass", (v,), _ptr(v), _ptr(sq_part))
 
-    def update(self, vin, vout, cw, wsum, sq_part=None, d2_part=None,
-               d2=None, tol2=0.0):
+    def update(self, vin, vout, cw, wsum, sq_part, d2_part=None, d2=None,
+               tol2=0.0):
         """One iteration from ``vin`` (None: zeros) into ``vout`` (may be
-        ``vin``: in place; the adaptive step, with d2, runs in place)."""
-        if sq_part is not None and self.n > TILE and self._scratch is None:
+        ``vin``: in place; the adaptive step, with d2, runs in place),
+        carrying the next norms incrementally into ``sq_part``."""
+        if self.n > TILE and self._scratch is None:
             # the peer-tiled update keeps each column's update here between
             # its two sweeps; one buffer per stack, reused by every iteration
             self._scratch = self.empty(self.P, self.part)
-        scratch = self._scratch if sq_part is not None else None
         self._pass("update", (vin, vout), _ptr(vin), _ptr(vout), _ptr(cw),
                    _ptr(wsum), _ptr(sq_part), _ptr(d2_part), _ptr(d2), tol2,
-                   _ptr(scratch))
+                   _ptr(self._scratch))
+
+    def clip_pass(self, vin, vout, cw, wsum, sq_part):
+        """A pass of the two-phase clip: with ``vout`` None the norms at
+        ``vin`` (None: zeros) into ``sq_part``; else the update ``vin`` ->
+        ``vout`` (may be ``vin``), carrying the next iteration's norms at
+        ``vout`` into ``sq_part`` unless it is None."""
+        self._pass("clip_pass", (vin, vout), _ptr(vin), _ptr(vout),
+                   _ptr(cw), _ptr(wsum), _ptr(sq_part), vec=self.clip_vec)
 
     def dot_pass(self, v, z, dot_part, sq_part=None):
         self._pass("dot_pass", (v, z), _ptr(v), _ptr(z), _ptr(dot_part),
@@ -563,25 +591,33 @@ def butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
 
 
 def _two_pass_clip(k, taus, weights, v0):
-    """The passes of the two-phase kernel over a validated stack ``k``: per
-    iteration a norm pass (norms recomputed from x, clip weights at that
-    iteration's tau) and an update pass. v0 is read in place (None:
-    zeros) and the first update writes v. Returns v (k.P, k.part)."""
+    """The passes of the two-phase kernel over a validated stack ``k``. Up
+    to TILE peers one read of the stack an iteration: a prologue forms the
+    norms at v0, and each update but the last forms the next iteration's
+    norms at its result, ||x_i - v_new||^2 recomputed from x (not the fused
+    kernel's incremental ones). Above TILE, per iteration a norm pass and
+    an update pass. Clip weights at each iteration's tau; v0 is read in
+    place (None: zeros) and the first update writes v.
+    Returns v (k.P, k.part)."""
     w, v0 = k.weights(weights), k.vector(v0)
     sq_part = k.partials()
     sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
     v = k.empty(k.P, k.part) if taus else k.start(v0)
+    one_read = k.n <= TILE
     for it, tau in enumerate(taus):
         vin = v0 if it == 0 else v
-        k.sq_pass(vin, sq_part)
+        if it == 0 or not one_read:
+            k.clip_pass(vin, None, None, None, sq_part)
         k.finish_weights(sq_part, w, tau, sq, cw, wsum if it == 0 else None)
-        k.update(vin, v, cw, wsum)
+        carry = one_read and it + 1 < len(taus)
+        k.clip_pass(vin, v, cw, wsum, sq_part if carry else None)
     return v
 
 
 def butterfly_clip(grads, n_parts, taus, weights=None, v0=None):
-    """Two-phase CenteredClip without tables: per iteration a norm pass
-    (norms recomputed from x) and an update pass. Returns (n_parts, part)."""
+    """Two-phase CenteredClip without tables: per iteration the norms
+    recomputed from x and an update, len(taus) + 1 passes of the stack up
+    to TILE peers (2 len(taus) above). Returns (n_parts, part)."""
     taus = [float(t) for t in taus]
     if not _on_cuda(grads):
         return butterfly_clip_plain(grads, n_parts, taus, weights, v0)
@@ -592,11 +628,11 @@ def butterfly_clip(grads, n_parts, taus, weights=None, v0=None):
 
 def centered_clip(xs, taus, weights=None, v0=None):
     """Single-partition CenteredClip with a per-iteration tau schedule
-    (kernel #12): #4's two passes an iteration over the whole (n, d) stack,
+    (kernel #12): #4's passes over the whole (n, d) stack,
     v += sum_i w_i min(1, taus[l]/||x_i - v||) (x_i - v) / max(sum_i w_i,
-    1e-30), 2 len(taus) passes, no tables. xs (n, d) float32 or bfloat16
-    (widened exactly in registers); weights (n,); v0 (d,) warm start.
-    Returns v (d,) float32."""
+    1e-30), len(taus) + 1 passes up to TILE peers, no tables. xs (n, d)
+    float32 or bfloat16 (widened exactly in registers); weights (n,); v0
+    (d,) warm start. Returns v (d,) float32."""
     taus = [float(t) for t in taus]
     if not _on_cuda(xs):
         return centered_clip_plain(xs, taus, weights, v0)

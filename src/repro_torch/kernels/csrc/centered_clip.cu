@@ -10,7 +10,10 @@
 //   * adaptive_clip_step_pallas     (one early-exit iteration):
 //       update with norms and ||dv||^2, finish weights;
 //   * butterfly_clip_pallas         (two-phase CenteredClip, no tables):
-//       n_iters x (sq pass, finish weights, update);
+//       up to 32 peers one read of the stack an iteration: the norms'
+//       prologue, then n_iters x (finish weights, update carrying the
+//       next iteration's norms); above, n_iters x (sq pass, finish
+//       weights, update);
 //   * digest_tables_batched_pallas  (verified:* digests, no tau):
 //       dot pass with norms, finish digests;
 //   * mean_digest_fused_pallas      (verified:mean, 2 passes):
@@ -34,7 +37,8 @@
 // that one partition. Like the batched passes they are
 // bound by bytes (a few float32 operations per element read): the design
 // reads the stack once per pass, n_iters + 2 passes for the fused clip,
-// one for the tables and 2 n_iters for the two-phase clip.
+// one for the tables and n_iters + 1 for the two-phase clip (2 n_iters
+// above 32 peers).
 // The wire-payload twins of butterfly_clip_fused_pallas and
 // mean_digest_fused_pallas are wire.cu.
 
@@ -69,9 +73,10 @@ extern "C" int cc_sq_pass(const float* x, long long ld, long long part,
 }
 
 // One iteration from v_in (null: zeros) into v_out (may be v_in: in
-// place). `scratch`: a (P, part) f32 buffer, needed only above 32 peers
-// when the update carries the next norms (sq_part given). With d2 (the
-// adaptive step) v_in must be v_out: a frozen partition is not written.
+// place), carrying the next iteration's norms into sq_part (the fused
+// clip's incremental norms). `scratch`: a (P, part) f32 buffer, needed only
+// above 32 peers. With d2 (the adaptive step) v_in must be v_out: a frozen
+// partition is not written.
 extern "C" int cc_update(const float* x, long long ld, long long part,
                          long long d, int n, int P, long long cs, int C,
                          int vec, const float* vin, float* vout,
@@ -81,30 +86,44 @@ extern "C" int cc_update(const float* x, long long ld, long long part,
   const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long chunks = static_cast<long long>(P) * C;
-  const bool with_sq = sq_part != nullptr, with_d2 = d2 != nullptr;
-  if ((with_sq && n > cc::kTile && scratch == nullptr) ||
+  const bool with_d2 = d2 != nullptr;
+  if (sq_part == nullptr || (n > cc::kTile && scratch == nullptr) ||
       (with_d2 && vin != vout))
     return static_cast<int>(cudaErrorInvalidValue);
-#define LAUNCH_SD(N, V, SQ, D2)                                            \
-  cc::launch_pass(cc::update_kernel<N, 0, SQ, D2, V>, chunks, st, s, vin,  \
+#define LAUNCH_D(N, V, D2)                                                 \
+  cc::launch_pass(cc::update_kernel<N, 0, true, D2, V>, chunks, st, s, vin, \
                   vout, cw, wsum, cs, C, P, sq_part, d2_part, d2, tol2,    \
                   scratch)
-#define LAUNCH(N, V)                   \
-  do {                                 \
-    if (with_sq && with_d2) {          \
-      LAUNCH_SD(N, V, true, true);     \
-    } else if (with_sq) {              \
-      LAUNCH_SD(N, V, true, false);    \
-    } else if (with_d2) {              \
-      LAUNCH_SD(N, V, false, true);    \
-    } else {                           \
-      LAUNCH_SD(N, V, false, false);   \
-    }                                  \
+#define LAUNCH(N, V)             \
+  do {                           \
+    if (with_d2) {               \
+      LAUNCH_D(N, V, true);      \
+    } else {                     \
+      LAUNCH_D(N, V, false);     \
+    }                            \
   } while (0)
   CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
-#undef LAUNCH_SD
+#undef LAUNCH_D
   return cc::launch_status();
+}
+
+// One pass of the two-phase clip (#4, #12; centered_clip.cuh, "The
+// two-phase clip"): vout null, the prologue's norms ||x_i - v_in||^2 into
+// sq_part; else the update v_in -> v_out with clip weights cw and wsum,
+// carrying the next iteration's norms ||x_i - v_out||^2 into sq_part when
+// it is given. Up to 32 peers `vec` means every row start of the stack and
+// the vectors is 16-byte aligned: the staged body; else the global body.
+// Above 32 peers: the peer-tiled norm pass or update, never both in one
+// pass.
+extern "C" int cc_clip_pass(const float* x, long long ld, long long part,
+                            long long d, int n, int P, long long cs, int C,
+                            int vec, const float* vin, float* vout,
+                            const float* cw, const float* wsum,
+                            float* sq_part, void* stream) {
+  return cc::clip_pass(cc::make_stack<0>(x, nullptr, ld, part, d, n), P, cs,
+                       C, vec, vin, vout, cw, wsum, sq_part,
+                       static_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -210,12 +229,17 @@ extern "C" int cc_finish_digests(const float* dot_part, const float* sq_part,
 
 // What the compiler made of a float32 pass, for a report: out[0] registers
 // a thread, out[1] local (spill) bytes a thread, out[2] resident CTAs per
-// SM. `pass`: 0 the norm pass, 1 the update with the next norms, 2 the dot
-// pass, 3 the dot pass with norms, 4 the mean pass, 5 finish weights, 6
-// finish tables, 7 the update alone (the two-pass clip), 8 the update with
-// norms and ||dv||^2 (the adaptive step); n and vec pick the
-// instantiation as a launch would.
+// SM, out[3] dynamic shared memory a CTA. `pass`: 0 the norm pass, 1 the
+// update with norms, 2 the dot pass, 3 the dot pass with norms, 4 the mean
+// pass, 5 finish weights, 6 finish tables, 8 the update with norms and
+// ||dv||^2 (the adaptive step); the two-phase clip's passes 7 (an update
+// with the next norms), 9 (the prologue's norms) and 10 (the last update)
+// up to 32 peers. n and vec pick the instantiation as a launch would.
 extern "C" int cc_pass_info(int pass, int n, int vec, int* out) {
+  out[3] = 0;
+  if (pass == 7) return cc::clip_pass_info<0>(1, n, vec, out);
+  if (pass == 9) return cc::clip_pass_info<0>(0, n, vec, out);
+  if (pass == 10) return cc::clip_pass_info<0>(2, n, vec, out);
 #define INFO(N, V)                                                          \
   do {                                                                      \
     switch (pass) {                                                         \
@@ -230,9 +254,6 @@ extern "C" int cc_pass_info(int pass, int n, int vec, int* out) {
         return cc::kernel_info(cc::dot_pass_kernel<N, 0, true, V>, out);    \
       case 4:                                                               \
         return cc::kernel_info(cc::mean_pass_kernel<N, 0, V>, out);         \
-      case 7:                                                               \
-        return cc::kernel_info(cc::update_kernel<N, 0, false, false, V>,    \
-                               out);                                        \
       case 8:                                                               \
         return cc::kernel_info(cc::update_kernel<N, 0, true, true, V>,      \
                                out);                                        \

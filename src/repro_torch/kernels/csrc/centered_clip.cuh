@@ -28,7 +28,8 @@
 //     takes changes nothing in how the chunk is summed, so the bits depend
 //     on (n, d, P) and the constant, never on the card;
 //   * inside a chunk each thread owns groups of G consecutive columns
-//     (G = 4 up to 8 peers, 1 above), group t, t + 256, ... of the chunk,
+//     (G = 4 up to 8 peers, 1 above; 4 up to 32 peers in the two-phase
+//     clip, "The two-phase clip" below), group t, t + 256, ... of the chunk,
 //     and sums them column by column in index order into n per-peer sums;
 //     a fixed warp-shuffle tree and a fixed cross-warp sum give the chunk's
 //     (n,) partials. A group of 4 is one 16-byte load of float32 (8 bytes
@@ -65,7 +66,39 @@
 
 #include <map>
 #include <mutex>
+#include <tuple>
 #include <utility>
+
+// The two-phase clip's instantiations up to 32 peers: every register budget
+// with and without the staged body (every row start 16-byte aligned).
+#define CC_DISPATCH_CLIP(n, vec, LAUNCH) \
+  do {                                   \
+    if ((n) <= 4) {                      \
+      if (vec) {                         \
+        LAUNCH(4, true);                 \
+      } else {                           \
+        LAUNCH(4, false);                \
+      }                                  \
+    } else if ((n) <= 8) {               \
+      if (vec) {                         \
+        LAUNCH(8, true);                 \
+      } else {                           \
+        LAUNCH(8, false);                \
+      }                                  \
+    } else if ((n) <= 16) {              \
+      if (vec) {                         \
+        LAUNCH(16, true);                \
+      } else {                           \
+        LAUNCH(16, false);               \
+      }                                  \
+    } else {                             \
+      if (vec) {                         \
+        LAUNCH(cc::kTile, true);         \
+      } else {                           \
+        LAUNCH(cc::kTile, false);        \
+      }                                  \
+    }                                    \
+  } while (0)
 
 namespace cc {
 
@@ -557,6 +590,293 @@ update_kernel(Stack<DT> s, const float* vin, float* vout,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The two-phase clip (#4, #12): one read of the stack an iteration.
+//
+// The JAX kernel runs two passes an iteration, the norms ||x_i - v||^2 and
+// then the update. Here a budget of L iterations is a prologue that forms
+// the norms from v0 (or from zero) and L update passes; each update pass
+// but the last also forms the NEXT iteration's norms, ||x_i - v_new||^2,
+// from the values of x it has just read (the two-phase recurrence: x -
+// v_new squared and summed, not the fused kernel's (diff - upd)^2). A group
+// is 4 columns at every n <= 32, thread t taking columns k0 + 4t + 1024 j
+// of its chunk (the 1024-column sub-tile j), so one pass sums each peer's
+// norm in the order of sq_pass_kernel at <= 8 peers, and the bits follow
+// from the chunk grid alone. Two bodies, one arithmetic:
+//   * staged (every row start 16-byte aligned): one thread copies each
+//     sub-tile's n row segments (and v's) into shared memory with 1-D bulk
+//     copies (cp.async.bulk, the Tensor Memory Accelerator), completing on
+//     an mbarrier; each thread reads its 4 columns of each peer from shared
+//     memory twice, once for the update and once for the norms (16-byte
+//     loads of float32), so no thread holds n x 4 values;
+//   * global (a row start off 16 bytes): the same two sweeps with loads
+//     from global memory, column by column where unaligned.
+// A CTA holds one stage, and the copies of one CTA overlap the arithmetic
+// of the others resident on its SM: on an H100 (PERF.md) one 69,640-byte
+// stage at 16 peers, 2-3 CTAs an SM, read 3.0 TB/s in the update, and one
+// CTA with a ring of 2 or 3 stages 2.3; at 4 peers one stage (4 CTAs an
+// SM) matched 2 and 3 and beat a body that kept the group's values in
+// registers (3.83 against 4.07 ms for #4).
+// Above 32 peers the two-phase clip keeps its two passes an iteration
+// (sq_pass_kernel and update_kernel, peer-tiled).
+// ---------------------------------------------------------------------------
+constexpr int kSubCols = kThreads * 4;  // columns of a staged sub-tile
+// the dynamic shared memory a CTA may take (227 KB less the static arrays)
+constexpr int kStageBudget = 232448 - 2048;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The stage of an n-peer stack of es-byte elements: v's row segment (f32)
+// and n row segments of the stack, kSubCols each.
+__host__ __device__ constexpr long long stage_bytes(int n, int es) {
+  return static_cast<long long>(kSubCols) *
+         (4 + static_cast<long long>(n) * es);
+}
+
+// Dynamic shared memory of the two-phase pass over n peers: the staged
+// body's stage and its mbarrier (vec), else none.
+constexpr int clip_smem(int n, int es, bool vec) {
+  return vec ? static_cast<int>(stage_bytes(n, es)) + 8 : 0;
+}
+static_assert(clip_smem(32, 4, true) <= kStageBudget,
+              "a 32-peer float32 stage fits a CTA");
+
+// Four consecutive elements of a staged row segment (shared memory).
+template <int DT>
+__device__ __forceinline__ void tile_x(const typename Elem<DT>::T* p,
+                                       float sc, float (&o)[4]) {
+  if constexpr (DT == 0) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+  } else {
+    static_assert(DT == 2, "the two-phase clip stages float32 or bf16");
+    const ushort4 q = *reinterpret_cast<const ushort4*>(p);
+    o[0] = __fmul_rn(Elem<2>::f32(q.x), sc);
+    o[1] = __fmul_rn(Elem<2>::f32(q.y), sc);
+    o[2] = __fmul_rn(Elem<2>::f32(q.z), sc);
+    o[3] = __fmul_rn(Elem<2>::f32(q.w), sc);
+  }
+}
+
+// Where a group's values come from: x_i for sweep `i` and v. `tile` (the
+// staged body, null otherwise) is the thread's column in the sub-tile's
+// first stack row, `vt` the same in v's row; `lim` the sub-tile's columns
+// that were copied (the rest, past d or in a tail shorter than 16 bytes,
+// load from global memory).
+template <int DT>
+struct GroupSrc {
+  const typename Elem<DT>::T* tile;
+  const float* vt;
+  bool in_tile;
+};
+
+template <int DT, bool VEC>
+__device__ __forceinline__ void src_x(const Stack<DT>& s,
+                                      const GroupSrc<DT>& src, int i,
+                                      long long p, long long k, Group g,
+                                      float sc, float (&o)[4]) {
+  if (src.tile != nullptr && src.in_tile) {
+    tile_x<DT>(src.tile + static_cast<long long>(i) * kSubCols, sc, o);
+  } else {
+    load_x<4, VEC>(s, i, p, k, g, sc, o);
+  }
+}
+
+// One group of the two-phase pass. UPD: v_out = v_in + sum_i cw_i (x_i -
+// v_in) / wsum, peers in index order (vin null: zeros). NEXT: acc[i] +=
+// ||x_i - v||^2 over the group's columns, v the new iterate (UPD) or v_in
+// (the prologue), each x_i read again from `src`.
+template <int MAXN, int DT, bool UPD, bool NEXT, bool VEC>
+__device__ __forceinline__ void clip_group(const Stack<DT>& s,
+                                           const GroupSrc<DT>& src,
+                                           long long p, long long k, Group g,
+                                           const float* vi, float* vo,
+                                           const float (&w)[MAXN],
+                                           const float (&sc)[MAXN], float ws,
+                                           float (&acc)[MAXN]) {
+  float vg[4], vn[4];
+  if (src.vt != nullptr && src.in_tile) {
+    const float4 q = *reinterpret_cast<const float4*>(src.vt);
+    vg[0] = q.x, vg[1] = q.y, vg[2] = q.z, vg[3] = q.w;
+  } else {
+    load_f<4, VEC>(vi, k, g, vg);
+  }
+  if constexpr (UPD) {
+    float num[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < MAXN; ++i) {
+      if (i < s.n) {
+        float xg[4];
+        src_x<DT, VEC>(s, src, i, p, k, g, sc[i], xg);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          num[e] = __fmaf_rn(w[i], __fsub_rn(xg[e], vg[e]), num[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) vn[e] = __fadd_rn(vg[e], __fdiv_rn(num[e], ws));
+    store_f<4, VEC>(vo, k, g, vn);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) vn[e] = vg[e];
+  }
+  if constexpr (NEXT) {
+#pragma unroll
+    for (int i = 0; i < MAXN; ++i) {
+      if (i < s.n) {
+        float xg[4];
+        src_x<DT, VEC>(s, src, i, p, k, g, sc[i], xg);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (e < g.nv) {
+            const float nd = __fsub_rn(xg[e], vn[e]);
+            acc[i] = __fmaf_rn(nd, nd, acc[i]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The staged body's copies of the sub-tile at column kb of chunk ch: the n
+// row segments of the stack (their columns before d, cut to whole 16
+// bytes) and, when the pass reads v, v's segment, all completing on `bar`.
+template <int DT>
+__device__ __forceinline__ void copy_sub_tile(const Stack<DT>& s,
+                                               const float* v, const Chunk& ch,
+                                               long long kb,
+                                               unsigned char* stage,
+                                               unsigned long long* bar) {
+  using T = typename Elem<DT>::T;
+  const long long cols = min(static_cast<long long>(kSubCols), ch.k1 - kb);
+  const long long valid =
+      max(0LL, min(cols, s.d - (ch.r * s.part + kb)));
+  const unsigned xb = static_cast<unsigned>(valid * sizeof(T)) & ~15u;
+  const unsigned vb = v == nullptr ? 0u : static_cast<unsigned>(cols * 4);
+  mbar_expect_tx(bar, vb + xb * s.n);
+  if (vb != 0) bulk_copy(stage, v + ch.r * s.part + kb, vb, bar);
+  if (xb != 0) {
+    T* rows = reinterpret_cast<T*>(stage + kSubCols * 4);
+    for (int i = 0; i < s.n; ++i)
+      bulk_copy(rows + static_cast<long long>(i) * kSubCols,
+                s.x + static_cast<long long>(i) * s.ld + ch.r * s.part + kb,
+                xb, bar);
+  }
+}
+
+// Pass: the two-phase clip's prologue (!UPD: the norms at v_in), an update
+// carrying the next norms (UPD, NEXT) or the last update (UPD only), over
+// n <= 32 peers; VEC (every row start 16-byte aligned) is the staged body,
+// with clip_smem bytes of dynamic shared memory, else the global body. The
+// register budget keeps 4 CTAs an SM at 4 peers.
+template <int MAXN, int DT, bool UPD, bool NEXT, bool VEC>
+__global__ void __launch_bounds__(kThreads, MAXN <= 4 ? 4 : 1)
+clip_pass_kernel(Stack<DT> s, const float* vin, float* vout,
+                 const float* __restrict__ cw, const float* __restrict__ wsum,
+                 long long cs, int C, int rows, float* __restrict__ sq_part) {
+  static_assert(UPD || NEXT, "a pass updates, forms norms, or both");
+  using T = typename Elem<DT>::T;
+  extern __shared__ __align__(128) unsigned char dyn[];
+  const float ws = UPD ? *wsum : 1.f;
+  const long long chunks = static_cast<long long>(rows) * C;
+  auto* full =
+      reinterpret_cast<unsigned long long*>(dyn + stage_bytes(s.n, sizeof(T)));
+  if constexpr (VEC) {
+    if (threadIdx.x == 0) {
+      mbar_init(full);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+  unsigned phase = 0;
+  for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
+    const Chunk ch = chunk_at(q, C, cs, s.part);
+    const long long p = ch.r;
+    const float* vi = vin == nullptr ? nullptr : vin + p * s.part;
+    float* vo = UPD ? vout + p * s.part : nullptr;
+    float w[MAXN], acc[MAXN], sc[MAXN];
+#pragma unroll
+    for (int i = 0; i < MAXN; ++i) {
+      w[i] = UPD && i < s.n ? cw[p * s.n + i] : 0.f;
+      acc[i] = 0.f;
+      sc[i] = peer_scale(s, i, p);
+    }
+    for (long long kb = ch.k0; kb < ch.k1; kb += kSubCols) {
+      const long long k = kb + threadIdx.x * 4;
+      GroupSrc<DT> src{nullptr, nullptr, false};
+      if constexpr (VEC) {
+        if (threadIdx.x == 0) {
+          // the stage's last reads (generic proxy) before the copies
+          // (async proxy) that overwrite it
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          copy_sub_tile<DT>(s, vin, ch, kb, dyn, full);
+        }
+        mbar_wait(full, phase);
+        phase ^= 1u;
+        const long long cols =
+            min(static_cast<long long>(kSubCols), ch.k1 - kb);
+        const long long valid = max(0LL, min(cols, s.d - (p * s.part + kb)));
+        const long long lim = static_cast<long long>(
+            (valid * sizeof(T)) & ~15LL) / static_cast<long long>(sizeof(T));
+        src.vt = vi == nullptr
+                     ? nullptr
+                     : reinterpret_cast<const float*>(dyn) + threadIdx.x * 4;
+        src.tile = reinterpret_cast<const T*>(dyn + kSubCols * 4) +
+                   threadIdx.x * 4;
+        src.in_tile = threadIdx.x * 4 + 4 <= lim;
+      }
+      if (k < ch.k1) {
+        const Group g = group_at<4, VEC>(s, p, k, ch.k1);
+        clip_group<MAXN, DT, UPD, NEXT, VEC>(s, src, p, k, g, vi, vo, w, sc,
+                                             ws, acc);
+      }
+      if constexpr (VEC) __syncthreads();  // every thread is done with it
+    }
+    if (NEXT) block_sums<MAXN>(acc, s.n, sq_part + p * s.n * C + ch.c, C);
+  }
+}
+
 // Pass: per-peer partials of <x_i - v, z> and, with SQ, ||x_i - v||^2.
 // Row j of the chunk grid reads partition p = j, or p = rows_at[j] when
 // given (the sampled-digest pass: only the k sampled partitions are read),
@@ -752,17 +1072,19 @@ Stack<DT> make_stack(const void* x, const float* scales, long long ld,
 }
 
 // CTAs of a persistent pass: as many as the card holds at once (its SM
-// count times the kernel's resident CTAs per SM), at most one per chunk.
-// The logical chunk grid, and so every bit, does not depend on it. The
-// card's count is asked once per (kernel, device) and kept; rank threads
-// launch at once, so the table is locked.
+// count times the kernel's resident CTAs per SM at `smem` bytes of dynamic
+// shared memory), at most one per chunk. The logical chunk grid, and so
+// every bit, does not depend on it. The card's count is asked once per
+// (kernel, device, smem) and kept; rank threads launch at once, so the
+// table is locked.
 template <typename Kernel>
-inline int persistent_ctas(Kernel kernel, long long chunks) {
+inline int persistent_ctas(Kernel kernel, long long chunks, int smem = 0) {
   static std::mutex lock;
-  static std::map<std::pair<const void*, int>, long long> held;
+  static std::map<std::tuple<const void*, int, int>, long long> held;
   int dev = 0;
   cudaGetDevice(&dev);
-  const auto key = std::make_pair(reinterpret_cast<const void*>(kernel), dev);
+  const auto key =
+      std::make_tuple(reinterpret_cast<const void*>(kernel), dev, smem);
   long long full = 0;
   {
     std::lock_guard<std::mutex> guard(lock);
@@ -775,7 +1097,7 @@ inline int persistent_ctas(Kernel kernel, long long chunks) {
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
             cudaSuccess &&
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0) ==
+                                                      kThreads, smem) ==
             cudaSuccess;
     full = static_cast<long long>(sms > 0 ? sms : 1) *
            (per_sm > 0 ? per_sm : 1);
@@ -794,20 +1116,147 @@ inline void launch_pass(void (*kernel)(Params...), long long chunks,
   kernel<<<persistent_ctas(kernel, chunks), kThreads, 0, st>>>(args...);
 }
 
-// Registers, local (spill) bytes and resident CTAs per SM of a kernel.
+// Let `kernel` take up to `most` bytes of dynamic shared memory, above the
+// default 48 KB: once per (kernel, device), at the most any launch of it
+// takes, so that rank threads launching it at once never lower the limit
+// under one another's launch.
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, int most) {
+  static std::mutex lock;
+  static std::map<std::pair<const void*, int>, bool> allowed;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_pair(reinterpret_cast<const void*>(kernel), dev);
+  std::lock_guard<std::mutex> guard(lock);
+  if (allowed.count(key) != 0) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (e == cudaSuccess) allowed[key] = true;
+  return static_cast<int>(e);
+}
+
+// launch_pass with `smem` bytes of dynamic shared memory, the kernel
+// allowed `most` (allow_smem) first; a refusal is returned (and the kernel
+// not launched).
+template <typename... Params, typename... Args>
+inline int launch_pass_smem(void (*kernel)(Params...), long long chunks,
+                            int smem, int most, cudaStream_t st,
+                            Args... args) {
+  if (smem > 0) {
+    const int e = allow_smem(kernel, most);
+    if (e != 0) return e;
+  }
+  kernel<<<persistent_ctas(kernel, chunks, smem), kThreads, smem, st>>>(
+      args...);
+  return 0;
+}
+
+// Registers, local (spill) bytes and resident CTAs per SM of a kernel at
+// `smem` bytes of dynamic shared memory (out[0..2]; out[3] = smem), the
+// kernel allowed `most` as a launch allows it.
 template <typename... Params>
-inline int kernel_info(void (*kernel)(Params...), int* out) {
+inline int kernel_info(void (*kernel)(Params...), int* out, int smem = 0,
+                       int most = 0) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
+  out[3] = smem;
+  if (smem > 0) {
+    const int rc = allow_smem(kernel, most);
+    if (rc != 0) return rc;
+  }
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel,
-                                                    kThreads, 0));
+                                                    kThreads, smem));
 }
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+// Launch one pass of the two-phase clip over P partitions (vout null: the
+// prologue's norms at vin; sq_part null: the last update). Up to 32 peers
+// it is clip_pass_kernel, the staged body where `vec` says every row start
+// is 16-byte aligned; above, the peer-tiled norm pass or update (two passes
+// an iteration, no next norms). Returns cudaErrorInvalidValue for an ask
+// it does not take and cudaErrorMisalignedAddress for a staged pass over
+// rows off 16 bytes.
+template <int DT>
+int clip_pass(const Stack<DT>& s, int P, long long cs, int C, int vec,
+              const float* vin, float* vout, const float* cw,
+              const float* wsum, float* sq_part, cudaStream_t st) {
+  const bool upd = vout != nullptr, next = sq_part != nullptr;
+  const long long chunks = static_cast<long long>(P) * C;
+  if ((!upd && !next) || (upd && (cw == nullptr || wsum == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (s.n > kTile) {
+    if (upd && next) return static_cast<int>(cudaErrorInvalidValue);
+    if (upd) {
+      launch_pass(update_kernel<kTile, DT, false, false, false>, chunks, st,
+                  s, vin, vout, cw, wsum, cs, C, P, nullptr, nullptr,
+                  nullptr, 0.f, nullptr);
+    } else {
+      launch_pass(sq_pass_kernel<kTile, DT, false>, chunks, st, s, vin, cs,
+                  C, P, sq_part);
+    }
+    return launch_status();
+  }
+  constexpr int es = sizeof(typename Elem<DT>::T);
+  if (vec &&
+      !(aligned16(s.x) && (s.ld * es) % 16 == 0 && (s.part * es) % 16 == 0 &&
+        aligned16(vin) && aligned16(vout)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  int rc = 0;
+#define CC_CLIP_LAUNCH(N, V)                                                 \
+  do {                                                                       \
+    const int smem = clip_smem(s.n, es, V), most = clip_smem(N, es, V);      \
+    if (upd && next) {                                                       \
+      rc = launch_pass_smem(clip_pass_kernel<N, DT, true, true, V>, chunks,  \
+                            smem, most, st, s, vin, vout, cw, wsum, cs, C,   \
+                            P, sq_part);                                     \
+    } else if (upd) {                                                        \
+      rc = launch_pass_smem(clip_pass_kernel<N, DT, true, false, V>, chunks, \
+                            smem, most, st, s, vin, vout, cw, wsum, cs, C,   \
+                            P, sq_part);                                     \
+    } else {                                                                 \
+      rc = launch_pass_smem(clip_pass_kernel<N, DT, false, true, V>, chunks, \
+                            smem, most, st, s, vin, vout, cw, wsum, cs, C,   \
+                            P, sq_part);                                     \
+    }                                                                        \
+  } while (0)
+  CC_DISPATCH_CLIP(s.n, vec, CC_CLIP_LAUNCH);
+#undef CC_CLIP_LAUNCH
+  return rc != 0 ? rc : launch_status();
+}
+
+// What the compiler made of the two-phase pass at n <= 32 peers (`mode` 0:
+// the prologue, 1: an update with the next norms, 2: the last update), as
+// kernel_info, with the dynamic shared memory a launch gives it.
+template <int DT>
+int clip_pass_info(int mode, int n, int vec, int* out) {
+  constexpr int es = sizeof(typename Elem<DT>::T);
+  if (n < 1 || n > kTile || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define CC_CLIP_INFO(N, V)                                                 \
+  do {                                                                     \
+    const int smem = clip_smem(n, es, V), most = clip_smem(N, es, V);      \
+    if (mode == 1)                                                         \
+      return kernel_info(clip_pass_kernel<N, DT, true, true, V>, out, smem, \
+                         most);                                            \
+    if (mode == 2)                                                         \
+      return kernel_info(clip_pass_kernel<N, DT, true, false, V>, out,     \
+                         smem, most);                                      \
+    return kernel_info(clip_pass_kernel<N, DT, false, true, V>, out, smem, \
+                       most);                                              \
+  } while (0)
+  CC_DISPATCH_CLIP(n, vec, CC_CLIP_INFO);
+#undef CC_CLIP_INFO
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // namespace cc
 

@@ -6,7 +6,9 @@
 //   * butterfly_clip_fused_dequant_pallas (compressed:butterfly_clip):
 //       the passes of butterfly_clip_fused over the wire payloads;
 //   * mean_digest_fused_dequant_pallas    (compressed:verified:mean):
-//       the passes of mean_digest_fused over the wire payloads.
+//       the passes of mean_digest_fused over the wire payloads;
+//   * centered_clip_pallas over a bf16 stack (#12 at unit scales): the
+//       two-phase clip's passes.
 // They reuse the float32 kernels' finishing steps (centered_clip.cu), which
 // read only the partial sums. A pass moves 1 (int8) or 2 (bf16) bytes per
 // element of the stack instead of 4.
@@ -41,18 +43,10 @@ int update(const void* x, const float* scales, long long ld, long long part,
   const long long chunks = static_cast<long long>(P) * C;
   const float* no_d2 = nullptr;
   float* no_part = nullptr;
-#define LAUNCH(N, V)                                                         \
-  do {                                                                       \
-    if (sq_part != nullptr) {                                                \
-      cc::launch_pass(cc::update_kernel<N, DT, true, false, V>, chunks, st,  \
-                      s, vin, vout, cw, wsum, cs, C, P, sq_part, no_part,    \
-                      no_d2, 0.f, scratch);                                  \
-    } else {                                                                 \
-      cc::launch_pass(cc::update_kernel<N, DT, false, false, V>, chunks, st, \
-                      s, vin, vout, cw, wsum, cs, C, P, no_part, no_part,    \
-                      no_d2, 0.f, no_part);                                  \
-    }                                                                        \
-  } while (0)
+#define LAUNCH(N, V)                                                       \
+  cc::launch_pass(cc::update_kernel<N, DT, true, false, V>, chunks, st, s, \
+                  vin, vout, cw, wsum, cs, C, P, sq_part, no_part, no_d2,  \
+                  0.f, scratch)
   CC_DISPATCH_PEERS(n, vec, LAUNCH);
 #undef LAUNCH
   return cc::launch_status();
@@ -119,10 +113,9 @@ extern "C" int wire_sq_pass(int dtype, const void* x, const float* scales,
 }
 
 // One CenteredClip iteration from v_in into v_out, carrying the next
-// iteration's norms when sq_part is given (the fused kernel's update) or
-// not (the two-pass kernel's, #12 over a bf16 stack). The adaptive loop's
-// frozen-partition variant is not built for wire payloads: d2 must be
-// null. `scratch` as in cc_update.
+// iteration's norms into sq_part (the fused kernel's update). The adaptive
+// loop's frozen-partition variant is not built for wire payloads: d2 must
+// be null. `scratch` as in cc_update.
 extern "C" int wire_update(int dtype, const void* x, const float* scales,
                            long long ld, long long part, long long d, int n,
                            int P, long long cs, int C, int vec,
@@ -131,12 +124,27 @@ extern "C" int wire_update(int dtype, const void* x, const float* scales,
                            const float* d2, float tol2, float* scratch,
                            void* stream) {
   (void)tol2;
-  if (d2_part != nullptr || d2 != nullptr ||
-      (sq_part != nullptr && n > cc::kTile && scratch == nullptr))
+  if (d2_part != nullptr || d2 != nullptr || sq_part == nullptr ||
+      (n > cc::kTile && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   WIRE_DISPATCH(update, x, scales, ld, part, d, n, P, cs, C, vec, vin, vout,
                 cw, wsum, sq_part, scratch,
                 static_cast<cudaStream_t>(stream));
+}
+
+// One pass of the two-phase clip, as cc_clip_pass, over a bf16 stack
+// (#12 at unit scales: an exact widening); other element types are
+// refused.
+extern "C" int wire_clip_pass(int dtype, const void* x, const float* scales,
+                              long long ld, long long part, long long d,
+                              int n, int P, long long cs, int C, int vec,
+                              const float* vin, float* vout, const float* cw,
+                              const float* wsum, float* sq_part,
+                              void* stream) {
+  if (dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return cc::clip_pass(cc::make_stack<2>(x, scales, ld, part, d, n), P, cs,
+                       C, vec, vin, vout, cw, wsum, sq_part,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int wire_dot_pass(int dtype, const void* x, const float* scales,

@@ -207,15 +207,18 @@ def run_local(n: int, fn, *, device=None, timeout: float = 300.0,
 # Ranks as processes: torch.distributed
 # ---------------------------------------------------------------------------
 def init_dist(init_method: str, world_size: int, rank: int, *,
-              device="cpu", timeout: float = 300.0):
+              device=None, timeout: float = 300.0):
     """Initialise the default process group: NCCL for a CUDA device (one
     rank per GPU: ``device``'s card, or card ``rank`` mod the card count
-    when it has no index), gloo for the CPU. ``init_method`` is a
-    ``tcp://host:port`` or ``file://path`` rendezvous. Returns a
-    :class:`DistGroup`."""
+    when it has no index), gloo for the CPU. ``device`` defaults to the
+    card (``resolve_device``: raises without one; pass ``"cpu"`` for
+    gloo). ``init_method`` is a ``tcp://host:port`` or ``file://path``
+    rendezvous. Returns a :class:`DistGroup`."""
     import torch.distributed as dist
 
-    device = torch.device(device)
+    from repro_torch import resolve_device
+
+    device = resolve_device(device)
     backend = "gloo"
     if device.type == "cuda":
         backend = "nccl"

@@ -229,7 +229,7 @@ sys.path.insert(0, {tests!r})
 import test_torch_collectives as t
 from repro_torch.launch import collectives as coll
 rank = int(sys.argv[1])
-group = coll.init_dist({init!r}, t.N, rank, timeout=60)
+group = coll.init_dist({init!r}, t.N, rank, device="cpu", timeout=60)
 out = t._collectives(group)
 np.savez({out!r} + f"/rank{{rank}}.npz", **out)
 import torch.distributed as dist
@@ -291,6 +291,7 @@ def test_init_dist_selects_nccl_and_the_ranks_card(monkeypatch):
     import torch.distributed as dist
 
     calls = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(torch.cuda, "set_device",
                         lambda i: calls.setdefault("card", i))
@@ -306,3 +307,18 @@ def test_init_dist_selects_nccl_and_the_ranks_card(monkeypatch):
     calls.clear()
     coll.init_dist("file:///nowhere", 8, 6, device="cpu")
     assert calls["backend"] == "gloo" and "card" not in calls
+
+
+def test_init_dist_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """With no device argument init_dist runs on the card: on a machine
+    without one it raises before any process group starts, and never
+    chooses gloo on its own."""
+    import torch.distributed as dist
+
+    started = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: started.append(backend))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coll.init_dist("file:///nowhere", 4, 0)
+    assert started == []

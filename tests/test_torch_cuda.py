@@ -4,10 +4,14 @@ launch counted; the wire-payload twins #7 and #8 give the bits of #1 and
 #5 on the dequantized payloads, and the sampled-digest kernel #9 gives, row
 for row, the bits of #2 (tau > 0) or #6 (tau = 0) at the sampled
 partitions; the single-partition kernels #10, #11 and #12 give the bits of
-#1, #2 and #4 at one partition, #12 also over a bf16 stack and with a tau
-schedule; every kernel above 32 peers (n = 33 and 64, the peer-tiled
-passes) and at partition lengths around a chunk boundary; and one stack
-gives the same bits at every storage offset and row stride. Marked
+#1, #2 and #4 at one partition, #12 also over a bf16 stack (the bits of
+the float32 kernel on the widened stack) and with a tau schedule; the
+two-phase clip (#4, #12) at each of its bodies (staged or global, up to
+32 peers), its one-read passes giving the bits of the two-pass
+composition up to 8 peers, refusing what it cannot run; every
+kernel above 32 peers (n = 33 and 64, the peer-tiled passes) and at
+partition lengths around a chunk boundary; and one stack gives the same
+bits at every storage offset and row stride. Marked
 ``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
@@ -20,7 +24,10 @@ import torch
 
 from repro_torch.kernels import centered_clip as kc
 
-SHAPES = [(4, 4 * 517 - 3), (5, 5 * 1001 - 3), (16, 16 * 3000 + 5)]
+# the last four run the two-phase clip's staged body (8, 9, 32: aligned
+# rows) and its global body (24: ragged) at more peers
+SHAPES = [(4, 4 * 517 - 3), (5, 5 * 1001 - 3), (16, 16 * 3000 + 5),
+          (8, 8 * 2052), (9, 9 * 4100), (24, 24 * 1028 - 3), (32, 32 * 1024)]
 
 
 @pytest.fixture
@@ -200,11 +207,16 @@ def test_single_partition_kernels_match_plain_versions_on_card(cuda, n, part,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n, d", [(2, 517), (4, 4096 + 5), (16, 16 * 3000 + 5),
-                                  (33, 1001)])
+                                  (33, 1001), (8, 2 * 4096 + 8),
+                                  (9, 3 * 4096 + 8), (16, 4096 + 1024 + 16),
+                                  (24, 4096 + 1024 + 8), (32, 2 * 1024 + 8)])
 def test_centered_clip_kernel_matches_plain_version_on_card(cuda, n, d,
                                                             dtype):
     """#12 with weights (a banned peer), a warm start and a tau schedule
-    with an infinite radius in it; its bits are #4's at one partition."""
+    with an infinite radius in it, at every body of the two-phase clip (d
+    a multiple of 8 stages a bf16 stack too); its bits are #4's at one
+    partition, and a bf16 stack gives the bits of the float32 kernel on
+    the widened stack."""
     g, _, v, w = _inputs(n, n * d, cuda)
     xs, v0 = g[:, :d].contiguous().to(dtype), v[0]
     for taus in ([1.0] * 5, [0.5, 2.0, math.inf, 1.0]):
@@ -213,10 +225,58 @@ def test_centered_clip_kernel_matches_plain_version_on_card(cuda, n, d,
                "centered_clip")
         _check(lambda: kc.centered_clip(xs, taus),
                lambda: kc.centered_clip_plain(xs, taus), "centered_clip")
+    a = kc.centered_clip(xs, [1.0] * 5, w, v0)
     if dtype == torch.float32:
-        a = kc.centered_clip(xs, [1.0] * 5, w, v0)
         b = kc.butterfly_clip(xs, 1, [1.0] * 5, w, v0[None])
         assert torch.equal(a, b[0])
+    else:
+        assert torch.equal(a, kc.centered_clip(xs.float(), [1.0] * 5, w, v0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d", [(4, 4 * (kc.CHUNK + 1024) - 3),
+                                  (4, 4 * (kc.CHUNK + 1024)),
+                                  (5, 5 * 1001 - 3), (8, 8 * 2052)])
+def test_two_phase_clip_is_its_composed_passes_bitwise_on_card(cuda, n, d):
+    """Up to 8 peers the one-read #4 (a prologue, then updates carrying the
+    next norms) gives the bits of L rounds of the norm pass and the update
+    composed as the two-pass kernel ran them, whichever body it takes
+    (global on the ragged stacks, staged on the aligned ones)."""
+    g, _, v, w = _inputs(n, d, cuda)
+    taus = [1.0, 0.5, math.inf, 2.0]
+    want = kc.butterfly_clip(g, n, taus, w, v)
+    k = kc._Stack(g, n)
+    ww, sq_part = k.weights(w), k.partials()
+    sq, cw, wsum = k.empty(n, n), k.empty(n, n), k.empty(1)
+    out = k.empty(n, k.part)
+    for it, tau in enumerate(taus):
+        vin = v if it == 0 else out
+        k.sq_pass(vin, sq_part)
+        k.finish_weights(sq_part, ww, tau, sq, cw, wsum if it == 0 else None)
+        k.clip_pass(vin, out, cw, wsum, None)
+    assert torch.equal(out, want)
+    assert k.clip_vec == (d % 4 == 0)
+
+
+@pytest.mark.cuda
+def test_two_phase_pass_refuses_what_it_cannot_run_on_card(cuda):
+    """No fallback: a pass that neither updates nor forms norms, the
+    staged body asked for over rows off 16 bytes, and an update carrying
+    the next norms above 32 peers are refused and raise; nothing runs
+    another body instead."""
+    g, _, v, w = _inputs(16, 16 * 4100, cuda)
+    k = kc._Stack(g, 16)
+    with pytest.raises(RuntimeError, match="clip_pass"):
+        k.clip_pass(v, None, None, None, None)
+    u = kc._Stack(_at(g, 1), 16)
+    assert not u.clip_vec
+    with pytest.raises(RuntimeError, match="clip_pass"):
+        u._pass("clip_pass", (v,), v.data_ptr(), None, None, None,
+                u.partials().data_ptr(), vec=True)
+    big = kc._Stack(_inputs(33, 33 * 64, cuda)[0], 1)
+    cw, wsum = big.empty(1, 33), torch.ones(1, device=cuda)
+    with pytest.raises(RuntimeError, match="clip_pass"):
+        big.clip_pass(None, big.empty(1, big.part), cw, wsum, big.partials())
 
 
 @pytest.mark.cuda
@@ -352,34 +412,40 @@ def _vec_at(v, offset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, d", [(4, 4 * 8192), (4, 4 * 8192 - 3),
-                                  (5, 5 * 1001 - 3), (8, 8 * 4100)])
+                                  (5, 5 * 1001 - 3), (8, 8 * 4100),
+                                  (16, 16 * 4100), (9, 9 * 4100 - 3)])
 def test_same_bits_at_every_storage_offset_and_row_stride_on_card(cuda, n, d):
     """One stack, stored contiguous and at storage offsets 0-3 of wider
     rows (row stride != d), with v0 and z also off 16 bytes at offset 1:
-    #1, #10, #2, #11, #5 and, over int8 and bf16 payloads, #7 and #8 give
-    the same bits every time (the 16-byte and the column-by-column bodies
-    sum in one order)."""
+    #1, #10, #2, #11, #5, the two-phase #4 and #12 (float32 and bf16) and,
+    over int8 and bf16 payloads, #7 and #8 give the same bits every time
+    (the 16-byte, the staged and the column-by-column bodies sum in one
+    order)."""
     g, z, v, w = _inputs(n, d, cuda)
     part = kc.part_len(d, n)
     taus = [1.0] * 4
     wire = {codec: _wire(g, n, codec) for codec in ("int8", "bf16")}
+    gb = g.to(torch.bfloat16)
 
-    def outputs(x, zz, vv, qs):
+    def outputs(x, xb, zz, vv, qs):
         xs = x[:, :part]
         out = [*kc.butterfly_clip_fused(x, n, taus, zz, None, w, vv),
                *kc.centered_clip_fused(xs, taus, zz[0], None, w, vv[0]),
                *kc.verify_tables_batched(x, n, vv, zz, 1.0),
                *kc.verify_tables(xs, vv[0], zz[0], 1.0),
-               *kc.mean_digest_fused(x, n, zz, w)]
+               *kc.mean_digest_fused(x, n, zz, w),
+               kc.butterfly_clip(x, n, taus, w, vv),
+               kc.centered_clip(xs, taus, w, vv[0]),
+               kc.centered_clip(xb[:, :part], taus, w, vv[0])]
         for q, sc in qs:
             out += [*kc.butterfly_clip_fused_dequant(q, sc, n, taus, zz,
                                                      None, w, vv),
                     *kc.mean_digest_fused_dequant(q, sc, n, zz, w)]
         return out
 
-    ref = outputs(g, z, v, wire.values())
+    ref = outputs(g, gb, z, v, wire.values())
     for offset in range(4):
         zz, vv = (_vec_at(z, 1), _vec_at(v, 1)) if offset == 1 else (z, v)
-        got = outputs(_at(g, offset), zz, vv,
+        got = outputs(_at(g, offset), _at(gb, offset), zz, vv,
                       [(_at(q, offset), sc) for q, sc in wire.values()])
         assert all(torch.equal(a, b) for a, b in zip(ref, got)), offset

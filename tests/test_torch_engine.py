@@ -52,14 +52,19 @@ SWITCHES = {
                            aggregator_scale=5.0, misreport_s=False), {}),
     "end_step": (dict(kind="sign_flip", end_step=2), {}),
     "clip_lambda": (dict(kind="sign_flip"), {"clip_lambda": 0.5}),
+    "label_flip": (dict(kind="label_flip"), {}),
+    "ipm_01": (dict(kind="ipm_01"), {}),
+    "m_validators_1": (dict(kind="sign_flip"), {"m_validators": 1}),
+    "m_validators_3": (dict(kind="sign_flip"), {"m_validators": 3}),
+    "delta_max": (dict(kind="sign_flip"), {"delta_max": 30.0}),
 }
 
 
 def _configs(attack, spec, **kw):
     attack, extra = (ATTACKS[attack], {}) if attack in ATTACKS \
         else SWITCHES[attack]
-    common = dict(tau=1.0, clip_iters=20, m_validators=2, **SPECS[spec],
-                  **extra, **kw)
+    common = {**dict(tau=1.0, clip_iters=20, m_validators=2), **SPECS[spec],
+              **extra, **kw}
     jcfg = jeng.config_from_attack(N, D, JAttack(**attack), **common)
     tcfg = teng.config_from_attack(N, D, TAttack(**attack), **common)
     return jcfg, tcfg
@@ -134,17 +139,21 @@ def test_scanned_steps_ban_steps_equal_jax(attack, spec):
     jcfg, tcfg = _configs(attack, spec)
     jX, jy = jnp.asarray(X), jnp.asarray(y)
 
+    # a flipped peer (label_flip) fits negated targets; honest_G is the
+    # gradient on its true ones
     def jgrads(p, t, flips):
-        r = jnp.einsum("nbd,d->nb", jX[t], p) - jy[t]
-        G = 2.0 * jnp.einsum("nbd,nb->nd", jX[t], r) / 4.0
-        return G, G
+        def grad(y_t):
+            r = jnp.einsum("nbd,d->nb", jX[t], p) - y_t
+            return 2.0 * jnp.einsum("nbd,nb->nd", jX[t], r) / 4.0
+        return grad(jnp.where(flips[:, None], -jy[t], jy[t])), grad(jy[t])
 
     tX, ty = torch.from_numpy(X), torch.from_numpy(y)
 
     def tgrads(p, t, flips):
-        r = torch.einsum("nbd,d->nb", tX[t], p) - ty[t]
-        G = 2.0 * torch.einsum("nbd,nb->nd", tX[t], r) / 4.0
-        return G, G
+        def grad(y_t):
+            r = torch.einsum("nbd,d->nb", tX[t], p) - y_t
+            return 2.0 * torch.einsum("nbd,nb->nd", tX[t], r) / 4.0
+        return grad(torch.where(flips[:, None], -ty[t], ty[t])), grad(ty[t])
 
     jst, jp, jouts = jeng.scan_protocol(
         jcfg, jeng.init_state(jcfg, seed=0), jnp.asarray(_byz()),

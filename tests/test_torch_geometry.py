@@ -31,6 +31,10 @@ def test_chunk_grid_tiles_each_partition(n, d, n_parts):
     assert g.group == (kc.GROUP if n <= 8 else 1)
     assert g.cs % kc.GROUP == 0 and g.cs % g.group == 0
     assert g.C == math.ceil(g.part / g.cs)
+    # the two-phase clip's passes: the same chunks, groups of 4 up to 32
+    # peers (the register and the staged bodies), 1 above (peer tiles)
+    assert kc.clip_grid(n, d, n_parts) == g._replace(
+        group=kc.GROUP if n <= 32 else 1)
     bounds = [(c * g.cs, min(g.part, (c + 1) * g.cs)) for c in range(g.C)]
     assert bounds[0][0] == 0 and bounds[-1][1] == g.part
     assert all(k0 < k1 for k0, k1 in bounds)  # none empty
@@ -160,21 +164,44 @@ def test_no_wide_loads_for_ragged_partitions_or_many_peers(calls, n, d,
     assert _pass_args(*calls[-1])[2] == 0
 
 
-def test_two_pass_and_digest_drivers_share_the_grid(calls):
-    """#4's iterations read v0 in place and write a new v; the sampled
-    rows pass takes the full stack's grid, so a sampled row sums what the
-    full pass sums."""
-    n, n_parts, part = 4, 4, 4096 * 3 + 4
+@pytest.mark.parametrize("n", [4, 16, 40])
+def test_two_pass_and_digest_drivers_share_the_grid(calls, n):
+    """#4 up to 32 peers reads the stack once an iteration: a prologue
+    forms the norms at v0 (read in place), then every update (the first
+    from v0 into a new v, then in place) but the last carries the next
+    norms into the buffer its finish sums. Above 32 peers a norm pass and
+    an update an iteration. The sampled rows pass takes the full stack's
+    grid, so a sampled row sums what the full pass sums."""
+    n_parts, part = 4, 4096 * 3 + 4
     g = _stack(n, n_parts * part, n_parts)
     geo = kc.chunk_grid(n, n_parts * part, n_parts)
     v0 = torch.zeros((n_parts, part))
-    v = kc._two_pass_clip(kc._Stack(g, n_parts), [1.0, 2.0], None, v0)
-    passes = [(c[0], _pass_args(*c)) for c in calls
-              if c[0] in ("cc_sq_pass", "cc_update")]
-    assert [p[0] for p in passes] == ["cc_sq_pass", "cc_update"] * 2
-    assert passes[0][1][3][0] == v0.data_ptr()
-    assert passes[1][1][3][:2] == (v0.data_ptr(), v.data_ptr())
-    assert passes[3][1][3][:2] == (v.data_ptr(), v.data_ptr())
+    taus = [1.0, 2.0, 3.0]
+    v = kc._two_pass_clip(kc._Stack(g, n_parts), taus, None, v0)
+    one_read = n <= 32
+    if one_read:
+        want = (["cc_clip_pass", "cc_finish_weights"]
+                + ["cc_clip_pass", "cc_finish_weights"] * (len(taus) - 1)
+                + ["cc_clip_pass"])
+    else:
+        want = ["cc_clip_pass", "cc_finish_weights", "cc_clip_pass"] * 3
+    assert [c[0] for c in calls] == want
+    passes = [_pass_args(*c) for c in calls if c[0] == "cc_clip_pass"]
+    finishes = [args for name, args in calls if name == "cc_finish_weights"]
+    sq = finishes[0][0]
+    assert all(f[0] == sq and f[2] == geo.C for f in finishes)
+    assert [f[5] for f in finishes] == taus
+    assert all((cs, C, vec) == (geo.cs, geo.C, int(one_read))
+               for cs, C, vec, _ in passes)
+    # (v_in, v_out, the norms' buffer) of each pass
+    got = [(own[0], own[1], own[4]) for _, _, _, own in passes]
+    vp, v0p = v.data_ptr(), v0.data_ptr()
+    if one_read:
+        assert got == [(v0p, None, sq), (v0p, vp, sq), (vp, vp, sq),
+                       (vp, vp, None)]
+    else:
+        assert got == [(v0p, None, sq), (v0p, vp, None), (vp, None, sq),
+                       (vp, vp, None), (vp, None, sq), (vp, vp, None)]
     calls.clear()
     k = kc._Stack(g, n_parts)
     z = torch.zeros((n_parts, part))
@@ -184,3 +211,27 @@ def test_two_pass_and_digest_drivers_share_the_grid(calls):
     cs, C, _, own = _pass_args(*calls[-1])
     assert (cs, C) == (geo.cs, geo.C) and own[1] == 2
     assert dot_part.shape == (2, n, geo.C)
+
+
+@pytest.mark.parametrize("n, offset, dtype, want", [
+    (4, 0, torch.float32, 1), (4, 2, torch.float32, 0),
+    (16, 0, torch.float32, 1), (16, 2, torch.float32, 0),
+    (16, 4, torch.float32, 1), (32, 1, torch.float32, 0),
+    (4, 4, torch.bfloat16, 0), (4, 8, torch.bfloat16, 1),
+    (16, 0, torch.bfloat16, 1),
+    (16, 4, torch.bfloat16, 0), (24, 8, torch.bfloat16, 1),
+    (33, 0, torch.float32, 0)])
+def test_two_phase_passes_stage_only_16_byte_rows(calls, n, offset, dtype,
+                                                  want):
+    """The two-phase clip asks for its staged body (vec = 1), which copies
+    whole 16-byte units into shared memory, up to 32 peers where every row
+    start is 16-byte aligned (a bf16 row on 8 bytes runs the global body);
+    above 32 peers the peer-tiled passes take none."""
+    n_parts, part = 2, 4096
+    g = _stack(n, n_parts * part, n_parts, offset, dtype)
+    scales = None if dtype == torch.float32 else torch.ones((n_parts, n))
+    k = kc._Stack(g, n_parts, scales)
+    prefix = "cc_" if dtype == torch.float32 else "wire_"
+    k.clip_pass(None, None, None, None, k.partials())
+    assert calls[-1][0] == prefix + "clip_pass"
+    assert _pass_args(*calls[-1])[2] == want
