@@ -92,6 +92,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -204,8 +205,10 @@ def as_tuple(out):
 # ---------------------------------------------------------------------------
 def kernel_cases(grads, n_parts, tau, weights, gen):
     """(name, kernel call, plain call, bound bytes, operations, moved
-    bytes) per kernel. Bound bytes read each input once and write each
-    output once; moved bytes are what the kernels' passes read and write
+    bytes) per kernel; operations and moved bytes may be functions of the
+    kernel's output (#3's depend on the iterations each partition took).
+    Bound bytes read each input once and write each output once; moved
+    bytes are what the kernels' passes read and write
     per call at CLIP_ITERS iterations: the stack once per pass, v (or agg)
     read in every pass and written in every update, z in the table pass,
     and the copy of v0 that the adaptive loop starts from (the fixed
@@ -240,16 +243,30 @@ def kernel_cases(grads, n_parts, tau, weights, gen):
                                             it, weights, v0),
          lambda: kc.butterfly_clip_adaptive_plain(grads, n_parts, tau, 1e-4,
                                                   it, weights, v0),
-         (nd + 2 * pd) * 4, nd * (6 * it + 3),
-         # + each partition's iterations: a frozen one skips its pass
-         lambda out: ((nd + 3 * pd)
-                      + int(out[1].sum()) * (n + 2) * part) * 4),
+         (nd + 2 * pd) * 4, lambda out: adaptive_ops(nd, n, part, out[1]),
+         lambda out: adaptive_moved(nd, pd, n, part, out[1])),
         ("butterfly_clip",
          lambda: kc.butterfly_clip(grads, n_parts, taus, weights, v0),
          lambda: kc.butterfly_clip_plain(grads, n_parts, taus, weights, v0),
          (nd + 2 * pd) * 4, two_phase_ops(nd, it),
          two_phase_moved(n, nd * 4, pd * 4, it, warm=True)),
     ]
+
+
+def adaptive_ops(nd, n, part, iters):
+    """Float32 operations of #3 with these per-partition iterations: 3 an
+    element for the prologue's norms, 6 an element of a partition for each
+    step it took (the update and the carried norms); a frozen partition's
+    step does none."""
+    return 3 * nd + 6 * n * part * int(iters.sum())
+
+
+def adaptive_moved(nd, pd, n, part, iters):
+    """Bytes #3 moves per call: the prologue reads the stack and v0 (in
+    place), and each partition's step reads its stack and reads and writes
+    its v, once per iteration it stepped (a frozen partition's no-op step
+    reads neither)."""
+    return (nd + pd + int(iters.sum()) * (n + 2) * part) * 4
 
 
 def two_phase_ops(nd, it):
@@ -445,6 +462,9 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
     ref = as_tuple(plain())
     torch.cuda.synchronize()
     check(bitwise(out1, out2), f"{tag}: not bitwise repeatable")
+    if name.startswith("adaptive_clip_step"):
+        check(torch.equal(out1[1], ref[1]), f"{tag}: iterations "
+              f"{out1[1].tolist()}, plain {ref[1].tolist()}")
     err, rel = max_err(out1, ref), max_rel_err(out1, ref)
     check(close(out1, ref), f"{tag}: disagrees with plain, "
           f"max abs err {err:.3e}, relative {rel:.3e}")
@@ -458,6 +478,7 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
     st["max_rel_err"] = max(st["max_rel_err"], rel)
     if not timed:
         return
+    ops = ops(out1) if callable(ops) else ops
     st["ms"] = time_ms(kern)
     st["plain_ms"] = time_ms(plain, reps=3)
     st["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
@@ -466,7 +487,7 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
                                ops / F32_FLOPS_PER_S)
     st["bytes"] = nbytes
     st["moved_bytes"] = moved(out1) if callable(moved) else moved
-    if name == "adaptive_clip_step":
+    if name.startswith("adaptive_clip_step"):
         st["iters"] = int(out1[1].max())
     print(f"{phase}: {tag}: {st['ms']:.3f} ms (plain {st['plain_ms']:.3f}"
           f" ms, bound {st['bound_ms']:.3f} ms by {st['bound_by']}; moves "
@@ -475,15 +496,59 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
           f"{err:.3e}, relative {rel:.3e}", flush=True)
 
 
-def fold_at_16(stats, name):
-    """Fold the timed 16-peer case of ``name`` (kept in its own stats row,
-    ``name@16``) into ``name``'s row: its errors into the row's maxima, its
-    numbers under ``at_16_peers``."""
-    side, main = stats.pop(f"{name}@16"), stats[name]
+# the side cases a kernel's row carries: stats key suffix -> row key
+SIDE_ROWS = {"@16": "at_16_peers", "@owner": "at_owner_stack"}
+
+
+def fold_side(stats, name, suffix):
+    """Fold a timed side case of ``name`` (kept in its own stats row,
+    ``name`` + ``suffix``) into ``name``'s row: its errors into the row's
+    maxima, its numbers under ``SIDE_ROWS[suffix]``."""
+    side, main = stats.pop(name + suffix), stats[name]
     for k in ("max_abs_err", "max_rel_err"):
         main[k] = max(main[k], side[k])
-    main["at_16_peers"] = {k: side[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "moved_bytes")}
+    main[SIDE_ROWS[suffix]] = {k: side[k] for k in (
+        "ms", "plain_ms", "bound_ms", "moved_bytes")}
+
+
+def owner_cases(stats, gen, dev):
+    """#3 and #7 at a launch owner's (4, d/4) stack, as launch paths (j)
+    and (l) call them: #3 with a warm start, tau 1, tol 1e-4 and the cap of
+    20 iterations; #7 over the int8 payloads at one partition, cold, 5
+    iterations. Held against plain (#7 also bit for bit against #1 on the
+    dequantized payloads) and timed, under ``at_owner_stack``."""
+    from repro_torch.core import compression
+    from repro_torch.kernels import centered_clip as kc
+
+    n, part = 4, D_FULL // 4
+    xs = stack(n, D_FULL, gen, dev)[:, :part].contiguous()
+    scale = 0.1 / math.sqrt(part)
+    v0 = scale * torch.randn((1, part), generator=gen, device=dev)
+    z = torch.randn((1, part), generator=gen, device=dev)
+    z = z / torch.linalg.vector_norm(z)
+    nd, pd, cap = n * part, part, 20
+    hold(stats, "adaptive_clip_step@owner",
+         f"adaptive_clip_step owner stack n={n} part={part} cap={cap}",
+         lambda: kc.butterfly_clip_adaptive(xs, 1, 1.0, 1e-4, cap, None, v0),
+         lambda: kc.butterfly_clip_adaptive_plain(xs, 1, 1.0, 1e-4, cap,
+                                                  None, v0),
+         (nd + 2 * pd) * 4, lambda out: adaptive_ops(nd, n, part, out[1]),
+         lambda out: adaptive_moved(nd, pd, n, part, out[1]), True)
+    fold_side(stats, "adaptive_clip_step", "@owner")
+    q, sc = compression.quantize_grads(xs, "int8", 1)
+    xd = compression.wire_grads(xs, "int8", 1)
+    taus = [1.0] * CLIP_ITERS
+    wire, it = nd + n * 4, CLIP_ITERS
+    hold(stats, "butterfly_clip_fused_dequant@owner",
+         f"butterfly_clip_fused_dequant int8 owner stack n={n} part={part}",
+         lambda: kc.butterfly_clip_fused_dequant(q, sc, 1, taus, z),
+         lambda: kc.butterfly_clip_fused_dequant_plain(q, sc, 1, taus, z),
+         wire + 2 * pd * 4 + 2 * n * 4, nd * (7 * it + 8),
+         (it + 2) * wire + (2 * it + 1) * pd * 4 + 2 * n * 4, True,
+         lambda: kc.butterfly_clip_fused(xd, 1, taus, z))
+    fold_side(stats, "butterfly_clip_fused_dequant", "@owner")
+    del xs, q, xd
+    torch.cuda.empty_cache()
 
 
 def phase_kernels(dev):
@@ -553,9 +618,10 @@ def phase_kernels(dev):
          lambda: kc.butterfly_clip_plain(grads, n_parts, taus, None, v0),
          (nd + 2 * pd) * 4, two_phase_ops(nd, CLIP_ITERS),
          two_phase_moved(n, nd * 4, pd * 4, CLIP_ITERS, warm=True), True)
-    fold_at_16(stats, "butterfly_clip")
+    fold_side(stats, "butterfly_clip", "@16")
     del grads, v0
     torch.cuda.empty_cache()
+    owner_cases(stats, gen, dev)
     keep = ("ms", "plain_ms", "bound_ms", "moved_bytes")
     for name, codec in PATH_CODEC.items():
         stats[name]["by_codec"] = {codec: {k: stats[name][k] for k in keep}}
@@ -569,11 +635,13 @@ def phase_kernels(dev):
           f"rtol=atol={RTOL:g} (max relative error "
           f"{max(st['max_rel_err'] for st in stats.values()):.3e}), repeat "
           "bitwise, the wire kernels equal their float32 twins on the "
-          "dequantized payloads bit for bit, and the sampled-digest kernel "
-          "equals #2/#6 at the sampled rows bit for bit "
+          "dequantized payloads bit for bit, the sampled-digest kernel "
+          "equals #2/#6 at the sampled rows bit for bit, and #3's "
+          "iterations equal plain's exactly "
           f"({len(shapes)} shapes {[s[:2] for s in shapes]} x tau {{1, inf}} "
           "(#9 also 0) x weights x codecs {int8, bf16}; #12 over f32 and "
-          "bf16 stacks; #4 also at (16, d) with 16 partitions)", flush=True)
+          "bf16 stacks; #4 also at (16, d) with 16 partitions; #3 and #7 "
+          "also at a launch owner's (4, d/4) stack)", flush=True)
     kc.reset_launch_counts()
     return stats
 
@@ -586,37 +654,51 @@ PASS_INFO = ((0, "sq pass"), (1, "update with norms"), (2, "dot pass"),
              (3, "dot pass with norms"), (4, "mean pass"),
              (5, "finish weights"), (6, "finish tables"),
              (8, "update with norms and dv"))
+# (n, vec) of the float32 passes' report: the staged body (vec 2) at 4 and
+# 8 peers, the 16-byte loads' body (vec 1: the mean pass) and the
+# column-by-column body at 4, groups of one column at 16
+FLOAT32_BODIES = ((4, 2), (4, 1), (4, 0), (8, 2), (16, 0))
 # the two-phase clip's passes (#4, #12)
 TWO_PHASE_INFO = ((9, "prologue"), (7, "update with next norms"),
                   (10, "last update"))
 # (n, vec) of the two-phase passes' report: the staged body (vec) and the
 # global body at 4 and 16 peers, the staged body at 8
 TWO_PHASE_BODIES = ((4, 1), (4, 0), (8, 1), (16, 1), (16, 0))
+# wire_pass_info's codes (csrc/wire.cu): the passes of #7 and #8's dot pass
+WIRE_PASS_INFO = ((0, "sq pass"), (1, "update with norms"), (2, "dot pass"),
+                  (3, "dot pass with norms"))
+# (n, vec) of the wire passes' report: the staged body (vec 2) at 4 and 8
+# peers, the 16-byte loads' global body (vec 1) at 4
+WIRE_BODIES = ((4, 2), (4, 1), (8, 2))
 
 
 def print_pass_info():
-    """Registers, local (spill) bytes and resident CTAs per SM of the
-    float32 passes, as the build made them: n = 4 with and without the
-    16-byte loads (the fused clip's main-path instantiation is n = 4 with
-    them), n = 8 with them, n = 16 (groups of one column); then the
-    two-phase clip's passes, with their dynamic shared memory, at each
-    (n, body) of ``TWO_PHASE_BODIES``."""
+    """Registers, local (spill) bytes, resident CTAs per SM and dynamic
+    shared memory of the float32 passes, as the build made them, at each
+    (n, vec) of ``FLOAT32_BODIES`` (the main path's instantiations are the
+    staged ones at n = 4; #3's step is the update with norms and dv); then
+    the two-phase clip's passes at each (n, body) of ``TWO_PHASE_BODIES``;
+    then the wire passes (#7, #8's dot pass) at int8 and bf16 at each (n,
+    vec) of ``WIRE_BODIES``."""
     import ctypes
 
     from repro_torch.kernels import build
 
     lib = build.load("centered_clip")
     out = (ctypes.c_int * 4)()
-    for n, vec in ((4, 1), (4, 0), (8, 1), (16, 0)):
+    for n, vec in FLOAT32_BODIES:
         parts = []
         for code, what in PASS_INFO:
-            if code in (5, 6) and (n, vec) != (4, 1):
-                continue  # the finishes do not depend on n
+            if code in (5, 6) and (n, vec) != (4, 2):
+                continue  # the finishes depend on neither n nor the body
+            if code == 4 and vec == 2:
+                continue  # the mean pass alone has no staged body
             check(lib.cc_pass_info(code, n, vec, out) == 0,
-                  f"pass info of {what} at n={n}")
+                  f"pass info of {what} at n={n} vec={vec}")
             parts.append(f"{what} {out[0]} regs, {out[1]} local bytes, "
-                         f"{out[2]} CTAs/SM")
-        print(f"phase 1: float32 passes at n={n} vec={vec}: "
+                         f"{out[2]} CTAs/SM, {out[3]} B dynamic shared")
+        body = {2: "staged", 1: "16-byte loads", 0: "column by column"}[vec]
+        print(f"phase 1: float32 passes at n={n} vec={vec} ({body}): "
               + "; ".join(parts), flush=True)
     for n, vec in TWO_PHASE_BODIES:
         parts = []
@@ -628,6 +710,18 @@ def print_pass_info():
         body = "staged" if out[3] else "global"
         print(f"phase 1: two-phase clip passes at n={n} vec={vec} "
               f"({body}): " + "; ".join(parts), flush=True)
+    wire = build.load("wire")
+    for dtype, codec in ((1, "int8"), (2, "bf16")):
+        for n, vec in WIRE_BODIES:
+            parts = []
+            for code, what in WIRE_PASS_INFO:
+                check(wire.wire_pass_info(dtype, code, n, vec, out) == 0,
+                      f"wire pass info of {what} at {codec} n={n} vec={vec}")
+                parts.append(f"{what} {out[0]} regs, {out[1]} local bytes, "
+                             f"{out[2]} CTAs/SM, {out[3]} B dynamic shared")
+            body = "staged" if vec == 2 else "global"
+            print(f"phase 1: {codec} wire passes at n={n} vec={vec} "
+                  f"({body}): " + "; ".join(parts), flush=True)
 
 
 class _Timed:
@@ -665,25 +759,55 @@ def yardstick(stacks):
 
 def off16(xs):
     """A copy of the stack stored one element past a 16-byte boundary, a
-    row stride of d + 1: the wrappers send it to the bodies that load row
-    by row (the two-phase clip's global body)."""
+    row stride of d + 1: the wrappers send it to the bodies that load
+    from global memory column by column (the two-phase clip's global body,
+    and that of the norm, update and dot passes)."""
     big = torch.empty((xs.shape[0], xs.shape[1] + 1), dtype=xs.dtype,
                       device=xs.device)
     big[:, 1:].copy_(xs)
     return big[:, 1:]
 
 
+def off_stage(xs):
+    """A copy of a wire stack stored 4 elements past a 16-byte boundary,
+    with a row stride of d + 4: every row start on a group of 4 elements
+    but none on 16 bytes, so the wire passes take their global body with
+    4-element loads instead of the staged one."""
+    big = torch.empty((xs.shape[0], xs.shape[1] + 4), dtype=xs.dtype,
+                      device=xs.device)
+    big[:, 4:].copy_(xs)
+    return big[:, 4:]
+
+
+def host_synchronous_adaptive():
+    """The loop #3 ran before it was decided on the card, the host reading
+    max ||dv||^2 before every iteration, as the card tests hold it
+    (``tests/test_torch_cuda.py``)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_cuda import _host_synchronous_adaptive
+
+    return _host_synchronous_adaptive
+
+
 def pass_breakdown(dev):
-    """#1 at the (4, d) stack (4 partitions) and #10 at one launch owner's
-    (4, d/4) stack, then the two-phase clip, #4 at the (4, d) stack and #12
-    at Fig. 9's (16, d) stack, each aligned (the staged body) and one
-    element off 16 bytes (the global body); 5 iterations at tau 1 with a
-    warm start, through the public wrappers with the libraries behind a
-    timing stand-in: every pass and every finish timed on its own with
-    CUDA events around its launch, median over 3 calls after one warm-up;
-    every call's output held against the plain version, and the global
-    body's bits equal to the staged body's. Then the streaming-read
+    """#10 at one launch owner's (4, d/4) stack; #3 at the (4, d) stack
+    (cap 5) and at the owner stack (cap 20), the whole call against the
+    sum of its passes; then on both bodies, aligned (the staged body) and
+    off 16 bytes (the global body): #1 and #4 at the (4, d) stack (4
+    partitions) and #12 at Fig. 9's (16, d) stack, one element off (a row
+    stride of d + 1: column by column), #7 over the int8 and bf16 payloads
+    of the (4, d) stack, 4 elements off with a row stride of d + 4 (the
+    4-element loads), and #7 and #3 at 8 peers over (8, d/2); 5
+    iterations at tau 1 with a warm start, through the public wrappers
+    with the libraries behind a timing stand-in: every pass and every
+    finish timed on its own with CUDA events around its launch, median
+    over 3 calls after one warm-up; every call's output held against the
+    plain version, and the global body's bits equal to the staged body's.
+    Then #3 against the host-synchronous loop it replaces
+    (``host_synchronous_adaptive``) at both stacks, each timed whole
+    (median of 5 calls), the same bits; then the streaming-read
     yardstick."""
+    from repro_torch.core import compression
     from repro_torch.kernels import build
     from repro_torch.kernels import centered_clip as kc
 
@@ -698,16 +822,24 @@ def pass_breakdown(dev):
     z = z / torch.linalg.vector_norm(z, dim=1, keepdim=True)
     v0 = (0.1 / math.sqrt(part)) * torch.randn((P, part), generator=gen,
                                                device=dev)
-    cases = [("butterfly_clip_fused", "#1", grads, P,
-              lambda: kc.butterfly_clip_fused(grads, P, taus, z, None, None,
-                                              v0),
-              lambda: kc.butterfly_clip_fused_plain(grads, P, taus, z, None,
-                                                    None, v0)),
-             ("centered_clip_fused", "#10", owner, 1,
+    cases = [("centered_clip_fused", "#10", owner, 1,
               lambda: kc.centered_clip_fused(owner, taus, z[0], None, None,
                                              v0[0]),
               lambda: kc.centered_clip_fused_plain(owner, taus, z[0], None,
-                                                   None, v0[0]))]
+                                                   None, v0[0])),
+             # the adaptive loop: the gap between its passes is the whole
+             # call less their sum
+             ("butterfly_clip_adaptive", "#3", grads, P,
+              lambda: kc.butterfly_clip_adaptive(grads, P, 1.0, 1e-4,
+                                                 CLIP_ITERS, None, v0),
+              lambda: kc.butterfly_clip_adaptive_plain(
+                  grads, P, 1.0, 1e-4, CLIP_ITERS, None, v0)),
+             ("butterfly_clip_adaptive", "#3 at the owner stack, cap 20",
+              owner, 1,
+              lambda: kc.butterfly_clip_adaptive(owner, 1, 1.0, 1e-4, 20,
+                                                 None, v0[:1]),
+              lambda: kc.butterfly_clip_adaptive_plain(owner, 1, 1.0, 1e-4,
+                                                       20, None, v0[:1]))]
     real, log = build.load, []
     build.load = lambda name="centered_clip": _Timed(real(name), log)
 
@@ -725,7 +857,10 @@ def pass_breakdown(dev):
             check(close(out, ref), f"breakdown {tag}: disagrees with plain")
             runs.append([t0.elapsed_time(t1) for _, t0, t1 in log])
             whole.append(start.elapsed_time(end))
-        whats = [w for w, _, _ in log]
+        # the adaptive loop may enqueue a different number of frozen
+        # no-op iterations from call to call: the launches all took
+        launched = [len(r) for r in runs[1:]]
+        whats = [w for w, _, _ in log][:min(launched)]
         ms = [statistics.median(r[i] for r in runs[1:])
               for i in range(len(whats))]
         n = xs.shape[0]
@@ -737,7 +872,10 @@ def pass_breakdown(dev):
 
         def show(what):
             t = [m for w, m in zip(whats, ms) if w == what]
-            rate = (f" ({moved[what] / statistics.median(t) / 1e9:.3f}"
+            # a frozen partition's no-op step (a twentieth of a step's
+            # time) moves nothing: the rate is that of the steps that did
+            moving = [m for m in t if m >= max(t) / 4]
+            rate = (f" ({moved[what] / statistics.median(moving) / 1e9:.3f}"
                     " TB/s)" if what in moved else "")
             return f"{what} {' '.join(f'{x:.3f}' for x in t)} ms" + rate
 
@@ -746,7 +884,7 @@ def pass_breakdown(dev):
               + "; ".join(show(w) for w in dict.fromkeys(whats))
               + f"; parts sum to {sum(ms):.3f} ms, whole call "
               f"{statistics.median(whole[1:]):.3f} ms (events between "
-              "launches)", flush=True)
+              f"launches; launches a call {launched})", flush=True)
         return out
 
     try:
@@ -755,16 +893,54 @@ def pass_breakdown(dev):
         g16 = stack(16, D_FULL, gen, dev)
         v16 = (0.1 / math.sqrt(D_FULL)) * torch.randn(D_FULL, generator=gen,
                                                       device=dev)
-        for name, tag, xs, n_parts, kern, plain in (
-                ("butterfly_clip", "#4", grads, P,
-                 lambda xs: kc.butterfly_clip(xs, P, taus, None, v0),
-                 lambda: kc.butterfly_clip_plain(grads, P, taus, None, v0)),
-                ("centered_clip", "#12", g16, 1,
-                 lambda xs: kc.centered_clip(xs, taus, None, v16),
-                 lambda: kc.centered_clip_plain(g16, taus, None, v16))):
+        bodies = [
+            ("butterfly_clip_fused", "#1", grads, P,
+             lambda xs: kc.butterfly_clip_fused(xs, P, taus, z, None, None,
+                                                v0),
+             lambda: kc.butterfly_clip_fused_plain(grads, P, taus, z, None,
+                                                   None, v0), off16),
+            ("butterfly_clip", "#4", grads, P,
+             lambda xs: kc.butterfly_clip(xs, P, taus, None, v0),
+             lambda: kc.butterfly_clip_plain(grads, P, taus, None, v0),
+             off16),
+            ("centered_clip", "#12", g16, 1,
+             lambda xs: kc.centered_clip(xs, taus, None, v16),
+             lambda: kc.centered_clip_plain(g16, taus, None, v16), off16)]
+        for codec in ("int8", "bf16"):
+            q, sc = compression.quantize_grads(grads, codec, P)
+            bodies.append((
+                "butterfly_clip_fused_dequant", f"#7 {codec}", q, P,
+                lambda xs, sc=sc: kc.butterfly_clip_fused_dequant(
+                    xs, sc, P, taus, z, None, None, v0),
+                lambda q=q, sc=sc: kc.butterfly_clip_fused_dequant_plain(
+                    q, sc, P, taus, z, None, None, v0), off_stage))
+        # 8 peers over 8 partitions of (8, d/2), the bytes of (4, d): the
+        # staged body at its largest peer count
+        g8 = stack(8, D_FULL // 2, gen, dev)
+        part8 = kc.part_len(D_FULL // 2, 8)
+        v8 = (0.1 / math.sqrt(part8)) * torch.randn((8, part8), generator=gen,
+                                                    device=dev)
+        z8 = torch.randn((8, part8), generator=gen, device=dev)
+        z8 = z8 / torch.linalg.vector_norm(z8, dim=1, keepdim=True)
+        for codec in ("int8", "bf16"):
+            q, sc = compression.quantize_grads(g8, codec, 8)
+            bodies.append((
+                "butterfly_clip_fused_dequant", f"#7 {codec} at 8 peers", q, 8,
+                lambda xs, sc=sc: kc.butterfly_clip_fused_dequant(
+                    xs, sc, 8, taus, z8, None, None, v8),
+                lambda q=q, sc=sc: kc.butterfly_clip_fused_dequant_plain(
+                    q, sc, 8, taus, z8, None, None, v8), off_stage))
+        bodies.append((
+            "butterfly_clip_adaptive", "#3 at 8 peers", g8, 8,
+            lambda xs: kc.butterfly_clip_adaptive(xs, 8, 1.0, 1e-4,
+                                                  CLIP_ITERS, None, v8),
+            lambda: kc.butterfly_clip_adaptive_plain(g8, 8, 1.0, 1e-4,
+                                                     CLIP_ITERS, None, v8),
+            off16))
+        for name, tag, xs, n_parts, kern, plain, shift in bodies:
             staged = run(name, f"{tag}, staged body", xs, n_parts,
                          lambda: kern(xs), plain)
-            off = off16(xs)
+            off = shift(xs)
             flat = run(name, f"{tag}, global body", off, n_parts,
                        lambda: kern(off), plain)
             check(all(torch.equal(a, b) for a, b in zip(staged, flat)),
@@ -774,8 +950,26 @@ def pass_breakdown(dev):
     finally:
         build.load = real
         kc.reset_launch_counts()
+    host_loop = host_synchronous_adaptive()
+    for label, xs, n_parts, v, cap in (("(4, d)", grads, P, v0, CLIP_ITERS),
+                                       ("(4, d/4) owner", owner, 1, v0[:1],
+                                        20)):
+        host = host_loop(xs, n_parts, 1.0, 1e-4, cap, None, v)
+        card = kc.butterfly_clip_adaptive(xs, n_parts, 1.0, 1e-4, cap, None,
+                                          v)
+        check(bitwise(host, card), f"breakdown #3 {label}: the loop decided "
+              "on the card is not the host loop's bits")
+        t_host = time_ms(lambda: host_loop(xs, n_parts, 1.0, 1e-4, cap, None,
+                                           v))
+        t_card = time_ms(lambda: kc.butterfly_clip_adaptive(
+            xs, n_parts, 1.0, 1e-4, cap, None, v))
+        print(f"phase 2 breakdown: #3 at the {label} stack, cap {cap} "
+              f"({int(card[1].max())} iterations): decided on the card "
+              f"{t_card:.3f} ms, the host-synchronous loop {t_host:.3f} ms "
+              "(the same bits)", flush=True)
+    kc.reset_launch_counts()
     yardstick((("(4, d)", grads), ("(4, d/4) owner", owner)))
-    del grads, owner, g16
+    del grads, owner, g16, g8, bodies
     torch.cuda.empty_cache()
 
 
@@ -807,13 +1001,27 @@ def step_breakdown(tr):
             "optimizer": opt_s}
 
 
+def hold_adaptive(label, launched, iters, cap):
+    """#3's launches on a path, one a step enqueued, against ``iters``, the
+    most iterations any partition stepped in each call: a call enqueues
+    every iteration in which some partition steps, and the frozen no-ops
+    after it until the host sees the last partition converge, at most
+    ``cap`` in all."""
+    check(sum(iters) <= launched <= cap * len(iters),
+          f"{label}: {launched} launches of adaptive_clip_step for calls "
+          f"that stepped {iters} iterations, cap {cap}")
+
+
 def run_path(label, argv, attack=None, expect=(), breakdown=False,
              launches=None, bans=True):
     """Drive one path through the launcher with the launch counts set to 0
     just before and read just after. ``expect``: kernels that must have
     launched; ``launches``: the exact count of every kernel that may
     launch, all others 0, and then the attacker must be banned (``bans``)
-    or, for a non-verifiable baseline, no one (``bans=False``)."""
+    or, for a non-verifiable baseline, no one (``bans=False``). Where #3
+    launched, its launches are held against the iterations each step's
+    call stepped (``hold_adaptive``), which the summary returned lists
+    under ``clip_iters``."""
     from repro_torch.core.protocol import AttackConfig
     from repro_torch.kernels import centered_clip as kc
     from repro_torch.launch import train_byzantine as tb
@@ -835,6 +1043,11 @@ def run_path(label, argv, attack=None, expect=(), breakdown=False,
           f"{label}: banned {summary['banned']} not within {sorted(byz)}")
     for name in expect:
         check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    if counts["adaptive_clip_step"]:
+        summary = dict(summary, clip_iters=[
+            r["clip_iters_used"] for r in tr.history])
+        hold_adaptive(label, counts["adaptive_clip_step"],
+                      summary["clip_iters"], args.clip_iters)
     if launches is not None:
         want = {name: launches.get(name, 0) for name in counts}
         check(counts == want, f"{label}: launches {counts}, expected {want}")
@@ -971,8 +1184,10 @@ def run_launch_path(label, argv, launches):
     launch counts are set to 0 just before and read when every rank has
     finished its steps (before the one more step of the breakdown).
     ``launches(record)``: the exact count of every kernel that may launch
-    (all others 0). Checks: a finite loss at every step, the attacker
-    banned within the steps, no honest peer banned. Returns the counts."""
+    (all others 0), but for #3, whose launches are held against the
+    iterations each owner's call stepped (``hold_adaptive``). Checks: a
+    finite loss at every step, the attacker banned within the steps, no
+    honest peer banned. Returns the counts."""
     from repro_torch.kernels import centered_clip as kc
     from repro_torch.launch import train as lt
 
@@ -989,6 +1204,11 @@ def run_launch_path(label, argv, launches):
           f"{label}: attacker not banned within {args.steps} steps: {bans}")
     want = {name: 0 for name in counts}
     want.update(launches(rec))
+    if counts["adaptive_clip_step"]:
+        hold_adaptive(label, counts["adaptive_clip_step"],
+                      [i for step in rec["clip_iters"] for i in step],
+                      args.clip_iters)
+        want["adaptive_clip_step"] = counts["adaptive_clip_step"]
     check(counts == want, f"{label}: launches {counts}, expected {want}")
     print(f"{label}: median step {statistics.median(rec['seconds']):.3f} s "
           f"over {len(rec['seconds'])} steps "
@@ -1049,7 +1269,7 @@ def run_fig9(label, stats):
          two_phase_ops(nd, len(taus)),
          two_phase_moved(16, nd * 4, D_FULL * 4, len(taus), warm=False), True,
          phase=label)
-    fold_at_16(stats, "centered_clip")
+    fold_side(stats, "centered_clip", "@16")
     print(f"{label}: #12 at the (16, d) stack within rtol=atol={RTOL:g} of "
           f"its plain version and bitwise repeatable (max abs err "
           f"{stats['centered_clip']['max_abs_err']:.3e} over every #12 "
@@ -1098,8 +1318,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--breakdown", action="store_true",
                     help="only build, print the passes' resources and run "
-                    "the per-pass breakdown of #1, #10, #4 and #12 and the "
-                    "yardstick")
+                    "the per-pass breakdown of #1, #3, #4, #7, #10 and #12 "
+                    "and the yardstick")
     args = ap.parse_args()
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1132,7 +1352,7 @@ def main():
     check(set(main_sum["banned"]) == set(main_sum["byzantine"]),
           f"phase 3: attacker not banned in 6 steps: {main_sum}")
     paths = {"main": main_counts}
-    _, paths["adaptive"] = run_path(
+    adaptive_sum, paths["adaptive"] = run_path(
         "phase 4 (adaptive warm start)",
         common + ["--steps", "3", "--aggregator",
                   "butterfly_clip:warm_start=true,adaptive_tol=1e-4"],
@@ -1194,8 +1414,7 @@ def main():
         ("launch_adaptive",
          ["--aggregator", "butterfly_clip:warm_start=true,adaptive_tol=1e-4",
           "--clip-iters", "20"],
-         lambda rec: {"adaptive_clip_step": sum(map(sum, rec["clip_iters"])),
-                      "verify_tables": sum(map(len, rec["clip_iters"]))}),
+         lambda rec: {"verify_tables": sum(map(len, rec["clip_iters"]))}),
         ("launch_verified_mean", ["--aggregator", "verified:mean"],
          per_owner_step("mean_digest_fused")),
         ("launch_compressed", ["--aggregator", "compressed:butterfly_clip"],
@@ -1262,11 +1481,15 @@ def main():
             "bound_by": st["bound_by"], "library_ms": None,
             "moved_bytes": st["moved_bytes"],
         }
+        if name == "adaptive_clip_step":
+            # the iterations the path's calls stepped, beside the launches
+            row["iters"] = sum(adaptive_sum["clip_iters"])
         if name in PATH_CODEC:
             row["codec"] = PATH_CODEC[name]
             row["by_codec"] = st["by_codec"]
-        if "at_16_peers" in st:
-            row["at_16_peers"] = st["at_16_peers"]
+        for key in SIDE_ROWS.values():
+            if key in st:
+                row[key] = st[key]
         rows.append(row)
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -42,7 +42,7 @@ SIGNATURES = {
         "cc_rows_dot_pass": _STACK + _GRID + (_P, _I) + (_P,) * 5,
         "cc_mean_pass": _STACK + _GRID + (_P, _P, _P),
         "cc_finish_weights": (_P, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P,
-                              _F, _P),
+                              _F, _P, _P),
         "cc_finish_tables": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
         "cc_finish_digests": (_P, _P, _I, _I, _I, _P, _P, _P),
         "cc_pass_info": (_I, _I, _I, _P),
@@ -56,6 +56,7 @@ SIGNATURES = {
         "wire_clip_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 6,
         "wire_dot_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 5,
         "wire_mean_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P, _P, _P),
+        "wire_pass_info": (_I, _I, _I, _I, _P),
     },
 }
 

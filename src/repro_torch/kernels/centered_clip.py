@@ -50,12 +50,14 @@ where every row start of the stack and of the float32 vectors is aligned,
 and column by column, in the same order, where not: the same stack gives
 the same bits at any storage offset or row stride. Up to 32 peers the
 two-phase clip copies its rows into shared memory first where every row
-start is 16-byte aligned. The fixed budgets (#1, #4, #7, #10, #12)
-read v0 in place and have their first update write v; the adaptive loop
-(#3) updates a copy in place.
+start is 16-byte aligned; so do every norm, update and dot pass up to 8
+peers. The fixed budgets (#1, #4, #7, #10, #12) and the adaptive loop (#3)
+read v0 in place and have their first update write v.
 
 ``LAUNCHES`` counts kernel launches on the card: one per wrapper call, and
-for the adaptive loop one per iteration it runs (its step kernel). The
+for the adaptive loop one per step it enqueues (its step kernel: every
+iteration in which some partition stepped, and the frozen no-ops enqueued
+before the host saw the last partition converge). The
 launch path runs its peer ranks as threads of one process, so every count
 goes through ``_count``, which holds a lock.
 """
@@ -100,6 +102,14 @@ GROUP = 4
 # sums: a constant, not derived from the card's SM count, so the reduction
 # order (and hence every bit) is the same on any card. A multiple of GROUP.
 CHUNK = 4096
+# a pass's `vec` (csrc): 0 column by column, 1 the 16-byte loads, STAGED the
+# staged body of the norm, update and dot passes (rows copied into shared
+# memory, up to 8 peers)
+STAGED = 2
+# slots of the adaptive loop's pinned ring of d2 readings (#3): iteration j
+# lands in slot j % slots, which the host reads only before it enqueues
+# iteration j + slots (the next write to that slot)
+ADAPTIVE_RING = 32
 
 
 class Geometry(NamedTuple):
@@ -138,10 +148,11 @@ def reset_launch_counts():
             LAUNCHES[name] = 0
 
 
-def _count(name: str):
-    """One more launch of kernel ``name`` (safe under concurrent ranks)."""
+def _count(name: str, times: int = 1):
+    """``times`` more launches of kernel ``name`` (safe under concurrent
+    ranks)."""
     with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += times
 
 
 def part_len(d: int, n_parts: int) -> int:
@@ -305,6 +316,9 @@ class _Stack:
         # the two-phase clip up to TILE peers copies whole 16-byte units of
         # its rows into shared memory: every row start on 16 bytes
         self.clip_vec = self.n <= TILE and rows_aligned(16)
+        # so does the staged body of every norm, update and dot pass, with
+        # groups of 4 (up to 8 peers); the mean pass has no staged body
+        self.stage = group == GROUP and rows_aligned(16)
         self.lib = build.load("centered_clip")
         self.stream = _stream(self.device)
         stack = (ld, self.part, self.d, self.n, self.P, self.cs, self.C)
@@ -317,19 +331,25 @@ class _Stack:
             self.args = (wire, grads.data_ptr(), self.scales.data_ptr(),
                          *stack)
 
+    @property
+    def body(self):
+        """The ``vec`` of the norm, update and dot passes."""
+        return STAGED if self.stage else int(self.vec)
+
     def _call(self, what, fn, *args):
         _check(fn(*args, self.stream), what)
 
     def _pass(self, name, vectors, *args, vec=None):
-        """Launch pass ``name``, with 16-byte loads when the stack (``vec``,
-        by default ``self.vec``) and every float32 vector it reads or writes
-        (``vectors``; None for a zero vector that is not read) start 16-byte
-        aligned."""
-        vec = ((self.vec if vec is None else vec)
-               and all(t is None or t.data_ptr() % 16 == 0 for t in vectors))
+        """Launch pass ``name`` with the body the stack allows (``vec``, by
+        default ``self.vec``: 16-byte loads; STAGED the staged body), or
+        column by column where a float32 vector it reads or writes
+        (``vectors``; None for a zero vector that is not read) does not
+        start 16-byte aligned."""
+        aligned = all(t is None or t.data_ptr() % 16 == 0 for t in vectors)
+        mode = int(self.vec if vec is None else vec) if aligned else 0
         self._call(f"{name} ({self.prefix})",
                    getattr(self.passes, self.prefix + name), *self.args,
-                   int(vec), *args)
+                   mode, *args)
 
     def f32(self, t, shape, name):
         t = t.to(device=self.device, dtype=torch.float32).contiguous()
@@ -364,20 +384,22 @@ class _Stack:
         return self.vector(v0).clone()
 
     def sq_pass(self, v, sq_part):
-        self._pass("sq_pass", (v,), _ptr(v), _ptr(sq_part))
+        self._pass("sq_pass", (v,), _ptr(v), _ptr(sq_part), vec=self.body)
 
     def update(self, vin, vout, cw, wsum, sq_part, d2_part=None, d2=None,
                tol2=0.0):
         """One iteration from ``vin`` (None: zeros) into ``vout`` (may be
-        ``vin``: in place; the adaptive step, with d2, runs in place),
-        carrying the next norms incrementally into ``sq_part``."""
+        ``vin``: in place), carrying the next norms incrementally into
+        ``sq_part``. With d2 (the adaptive step) a frozen partition is
+        neither read nor written, so only a first step (d2 = +inf) may
+        write a ``vout`` other than ``vin``."""
         if self.n > TILE and self._scratch is None:
             # the peer-tiled update keeps each column's update here between
             # its two sweeps; one buffer per stack, reused by every iteration
             self._scratch = self.empty(self.P, self.part)
         self._pass("update", (vin, vout), _ptr(vin), _ptr(vout), _ptr(cw),
                    _ptr(wsum), _ptr(sq_part), _ptr(d2_part), _ptr(d2), tol2,
-                   _ptr(self._scratch))
+                   _ptr(self._scratch), vec=self.body)
 
     def clip_pass(self, vin, vout, cw, wsum, sq_part):
         """A pass of the two-phase clip: with ``vout`` None the norms at
@@ -389,21 +411,26 @@ class _Stack:
 
     def dot_pass(self, v, z, dot_part, sq_part=None):
         self._pass("dot_pass", (v, z), _ptr(v), _ptr(z), _ptr(dot_part),
-                   _ptr(sq_part))
+                   _ptr(sq_part), vec=self.body)
 
     def rows_dot_pass(self, rows, v, z, dot_part, sq_part):
         self._pass("rows_dot_pass", (v, z), _ptr(rows), rows.shape[0],
-                   _ptr(v), _ptr(z), _ptr(dot_part), _ptr(sq_part))
+                   _ptr(v), _ptr(z), _ptr(dot_part), _ptr(sq_part),
+                   vec=self.body)
 
     def mean_pass(self, w, v):
         self._pass("mean_pass", (v,), _ptr(w), _ptr(v))
 
     def finish_weights(self, sq_part, w, tau, sq, cw, wsum=None,
-                       d2_part=None, d2=None, iters=None, tol2=0.0):
+                       d2_part=None, d2=None, iters=None, tol2=0.0,
+                       d2_seen=None):
+        """Clip weights from the norms' partials; the adaptive step (d2)
+        also finishes d2 and iters, and writes d2 to ``d2_seen`` (the
+        address of P floats of pinned host memory) when given."""
         self._call("finish weights", self.lib.cc_finish_weights,
                    _ptr(sq_part), self.P, self.C, self.n, _ptr(w),
                    float(tau), _ptr(sq), _ptr(cw), _ptr(wsum),
-                   _ptr(d2_part), _ptr(d2), _ptr(iters), tol2)
+                   _ptr(d2_part), _ptr(d2), _ptr(iters), tol2, d2_seen)
 
     def finish_tables(self, dot_part, tau, s, norms, sq_part=None,
                       sq_in=None):
@@ -560,34 +587,119 @@ def verify_tables_batched(grads, n_parts, agg, z, tau):
     return s, norms
 
 
-def butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
-                            weights=None, v0=None):
-    """Early-exit CenteredClip: one step kernel per iteration, clip weights
-    from the carried squared norms, converged partitions frozen (their
-    step is skipped, which is the select of the TPU loop). The host reads
-    max ||dv||^2 once per iteration to decide whether to go on.
-    Returns (agg (n_parts, part), iters (n_parts,) int32)."""
-    if not _on_cuda(grads):
-        return butterfly_clip_adaptive_plain(grads, n_parts, tau, tol,
-                                             max_iters, weights, v0)
-    k = _Stack(grads, n_parts)
-    w, v = k.weights(weights), k.start(v0)
+def adaptive_decide(i, max_iters, slots, seen, done, converged):
+    """The adaptive loop's decision before it enqueues iteration i (from
+    0): (whether to enqueue it, the newest iteration known complete).
+    ``seen``: the newest iteration known complete so far (-1: none);
+    ``done(j)``: whether iteration j's reading of d2 has landed on the host
+    (an event's query: never a wait); ``converged(j)``: whether that reading
+    has every partition at d2 <= tol2. Iterations land in order, so the
+    host asks forward from ``seen`` and stops at the first that has not
+    landed, among the ``slots`` newest only (an older slot has been
+    written again). It stops at ``max_iters``, or once the newest landed
+    reading shows every partition converged, which then lasts: a converged
+    partition is frozen on the card, so every iteration enqueued after it
+    is a no-op and where the loop stops changes no bit."""
+    if i >= max_iters:
+        return False, seen
+    newest, j = seen, max(seen + 1, i - slots)
+    while j < i and done(j):
+        newest, j = j, j + 1
+    return not (newest > seen and converged(newest)), newest
+
+
+class _D2Ring:
+    """The adaptive loop's readings of d2 (P,) on the host: iteration j's
+    finish writes d2 into slot j % slots of a pinned host buffer (mapped
+    into the card's address space: no copy is enqueued), and an event is
+    recorded behind it on the stream of d2's card; ``done`` asks the
+    event, ``converged`` reads the landed slot. The slots start at +inf,
+    so a reading that were not yet visible could only delay the stop."""
+
+    def __init__(self, d2, slots):
+        self.slots = slots
+        host = torch.empty((slots, d2.shape[0]), dtype=torch.float32,
+                           pin_memory=True)
+        self.rows = host.numpy()
+        self.rows.fill(np.inf)
+        self.ptrs = [row.data_ptr() for row in host]
+        self.host = host
+        self.events = [torch.cuda.Event() for _ in range(slots)]
+        self.stream = torch.cuda.current_stream(d2.device)
+
+    def slot(self, j):
+        """The address iteration j's finish writes its d2 to."""
+        return self.ptrs[j % self.slots]
+
+    def push(self, j):
+        """The event behind iteration j's finish."""
+        self.events[j % self.slots].record(self.stream)
+
+    def done(self, j):
+        return self.events[j % self.slots].query()
+
+    def converged(self, j, tol2):
+        return not bool((self.rows[j % self.slots] > tol2).any())
+
+
+def _adaptive_clip(k, tau, tol, max_iters, weights, v0, ring=_D2Ring):
+    """The passes of the early-exit loop over a validated stack ``k``: a
+    norm prologue at v0 (read in place), then up to ``max_iters``
+    iterations, each a step (update carrying the next norms and ||dv||^2)
+    and its finish (clip weights; d2 and iters of the partitions that
+    stepped), enqueued back to back with no host read between them: each
+    finish also writes d2 into a slot of ``ring``, pinned host memory,
+    behind which an event is recorded; the host polls the landed slots
+    (``adaptive_decide``) to stop enqueuing once every partition has
+    converged. The first step reads v0 and writes v (every partition steps
+    at iteration 0 while tol2 < +inf, the d2 it starts from), the rest run
+    in place. A tol2 of +inf or NaN freezes every partition before its
+    first step: v0 (None: zeros) comes back, and nothing is launched.
+    Each step enqueued is a launch.
+    Returns (v (P, part), iters (P,) int32)."""
+    w, v0 = k.weights(weights), k.vector(v0)
     sq_part, d2_part = k.partials(), k.empty(k.P, k.C)
     sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
     tol2 = float(np.float32(tol) ** 2)
     d2 = torch.full((k.P,), math.inf, device=k.device)
     iters = torch.zeros((k.P,), dtype=torch.int32, device=k.device)
-    k.sq_pass(v, sq_part)  # prologue: the carried state for v0
+    if max_iters < 1 or not math.inf > tol2:
+        return k.start(v0), iters
+    k.sq_pass(v0, sq_part)  # prologue: the carried state for v0
     k.finish_weights(sq_part, w, tau, sq, cw, wsum)
-    for _ in range(max_iters):
-        if not bool((d2 > tol2).any()):
+    v = k.empty(k.P, k.part)
+    ring = ring(d2, min(max_iters, ADAPTIVE_RING))
+    seen = -1
+    for i in range(max_iters):
+        go_on, seen = adaptive_decide(i, max_iters, ring.slots, seen,
+                                      ring.done,
+                                      lambda j: ring.converged(j, tol2))
+        if not go_on:
             break
-        k.update(v, v, cw, wsum, sq_part=sq_part, d2_part=d2_part, d2=d2,
-                 tol2=tol2)
-        k.finish_weights(sq_part, w, tau, sq, cw, d2_part=d2_part, d2=d2,
-                         iters=iters, tol2=tol2)
+        k.update(v0 if i == 0 else v, v, cw, wsum, sq_part=sq_part,
+                 d2_part=d2_part, d2=d2, tol2=tol2)
         _count("adaptive_clip_step")
+        k.finish_weights(sq_part, w, tau, sq, cw, d2_part=d2_part, d2=d2,
+                         iters=iters, tol2=tol2, d2_seen=ring.slot(i))
+        ring.push(i)
     return v, iters
+
+
+def butterfly_clip_adaptive(grads, n_parts, tau, tol, max_iters,
+                            weights=None, v0=None):
+    """Early-exit CenteredClip: one step kernel per iteration, clip weights
+    from the carried squared norms, converged partitions frozen (their
+    step is skipped, which is the select of the TPU loop). The loop is
+    decided on the card: iterations go out back to back and the host only
+    polls landed readings of ||dv||^2 to stop enqueuing
+    (``_adaptive_clip``).
+    ``LAUNCHES`` counts the steps enqueued.
+    Returns (agg (n_parts, part), iters (n_parts,) int32)."""
+    if not _on_cuda(grads):
+        return butterfly_clip_adaptive_plain(grads, n_parts, tau, tol,
+                                             max_iters, weights, v0)
+    return _adaptive_clip(_Stack(grads, n_parts), tau, tol, max_iters,
+                          weights, v0)
 
 
 def _two_pass_clip(k, taus, weights, v0):

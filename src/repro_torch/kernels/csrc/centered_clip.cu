@@ -55,7 +55,10 @@ using cc::kThreads;
 // stack and of each float32 vector it reads or writes is 16-byte aligned
 // (the 16-byte loads), 0 otherwise (the same sums, loaded column by
 // column). Any peer count n >= 1: above 32 the passes walk the peers in
-// tiles. A null v in a pass that reads v reads zeros.
+// tiles. A null v in a pass that reads v reads zeros. `vec` 2
+// (cc::kStaged; the norm, update and dot passes up to 8 peers): the staged
+// body, every row start of the stack and the vectors 16-byte aligned; an
+// ask it cannot run is refused, never run another way.
 // ---------------------------------------------------------------------------
 extern "C" int cc_sq_pass(const float* x, long long ld, long long part,
                           long long d, int n, int P, long long cs, int C,
@@ -64,6 +67,14 @@ extern "C" int cc_sq_pass(const float* x, long long ld, long long part,
   const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long chunks = static_cast<long long>(P) * C;
+  if (vec == cc::kStaged) {
+    const int rc = cc::staged_status(s, v, nullptr);
+    if (rc != 0) return rc;
+    constexpr int DT = 0;
+#define KERNEL(N) cc::sq_pass_kernel<N, DT, true, true>
+    CC_LAUNCH_STAGED(1, s, v, cs, C, P, sq_part);
+#undef KERNEL
+  }
 #define LAUNCH(N, V)                                                  \
   cc::launch_pass(cc::sq_pass_kernel<N, 0, V>, chunks, st, s, v, cs, C, \
                   P, sq_part)
@@ -75,8 +86,9 @@ extern "C" int cc_sq_pass(const float* x, long long ld, long long part,
 // One iteration from v_in (null: zeros) into v_out (may be v_in: in
 // place), carrying the next iteration's norms into sq_part (the fused
 // clip's incremental norms). `scratch`: a (P, part) f32 buffer, needed only
-// above 32 peers. With d2 (the adaptive step) v_in must be v_out: a frozen
-// partition is not written.
+// above 32 peers. With d2 (the adaptive step) a frozen partition is
+// neither read nor written, so v_out differs from v_in only in a first
+// step, where d2 is +inf for every partition.
 extern "C" int cc_update(const float* x, long long ld, long long part,
                          long long d, int n, int P, long long cs, int C,
                          int vec, const float* vin, float* vout,
@@ -87,9 +99,23 @@ extern "C" int cc_update(const float* x, long long ld, long long part,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long chunks = static_cast<long long>(P) * C;
   const bool with_d2 = d2 != nullptr;
-  if (sq_part == nullptr || (n > cc::kTile && scratch == nullptr) ||
-      (with_d2 && vin != vout))
+  if (sq_part == nullptr || (n > cc::kTile && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == cc::kStaged) {
+    const int rc = cc::staged_status(s, vin, vout);
+    if (rc != 0) return rc;
+    constexpr int DT = 0;
+    if (with_d2) {
+#define KERNEL(N) cc::update_kernel<N, DT, true, true, true, true>
+      CC_LAUNCH_STAGED(1, s, vin, vout, cw, wsum, cs, C, P, sq_part,
+                       d2_part, d2, tol2, scratch);
+#undef KERNEL
+    }
+#define KERNEL(N) cc::update_kernel<N, DT, true, false, true, true>
+    CC_LAUNCH_STAGED(1, s, vin, vout, cw, wsum, cs, C, P, sq_part, d2_part,
+                     d2, tol2, scratch);
+#undef KERNEL
+  }
 #define LAUNCH_D(N, V, D2)                                                 \
   cc::launch_pass(cc::update_kernel<N, 0, true, D2, V>, chunks, st, s, vin, \
                   vout, cw, wsum, cs, C, P, sq_part, d2_part, d2, tol2,    \
@@ -137,6 +163,19 @@ int dot_pass(const float* x, long long ld, long long part, long long d,
   const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long chunks = static_cast<long long>(n_rows) * C;
+  if (vec == cc::kStaged) {
+    const int rc = cc::staged_status(s, v, z);
+    if (rc != 0) return rc;
+    constexpr int DT = 0;
+    if (sq_part != nullptr) {
+#define KERNEL(N) cc::dot_pass_kernel<N, DT, true, true, true>
+      CC_LAUNCH_STAGED(2, s, v, z, cs, C, n_rows, dot_part, sq_part, rows);
+#undef KERNEL
+    }
+#define KERNEL(N) cc::dot_pass_kernel<N, DT, false, true, true>
+    CC_LAUNCH_STAGED(2, s, v, z, cs, C, n_rows, dot_part, sq_part, rows);
+#undef KERNEL
+  }
 #define LAUNCH(N, V)                                                        \
   do {                                                                      \
     if (sq_part != nullptr) {                                               \
@@ -193,18 +232,18 @@ extern "C" int cc_mean_pass(const float* x, long long ld, long long part,
 }
 
 // The finishing kernels: a CTA per row of the (rows, n, C) partials and
-// peer, or (the adaptive step, which also finishes ||dv||^2 and writes d2)
-// a CTA per row for all its peers.
+// peer (the adaptive step's CTA of peer 0 also finishes ||dv||^2, writes
+// d2 and iters, and copies d2 to d2_seen, pinned host memory, when given).
 extern "C" int cc_finish_weights(const float* sq_part, int P, int C, int n,
                                  const float* w, float tau, float* sq_out,
                                  float* cw_out, float* wsum_out,
                                  const float* d2_part, float* d2, int* iters,
-                                 float tol2, void* stream) {
-  const dim3 grid(P, d2 == nullptr ? n : 1);
+                                 float tol2, float* d2_seen, void* stream) {
+  const dim3 grid(P, n);
   cc::finish_weights_kernel<<<grid, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       sq_part, C, n, w, tau, sq_out, cw_out, wsum_out, d2_part, d2, iters,
-      tol2);
+      tol2, d2_seen);
   return cc::launch_status();
 }
 
@@ -234,12 +273,46 @@ extern "C" int cc_finish_digests(const float* dot_part, const float* sq_part,
 // pass, 5 finish weights, 6 finish tables, 8 the update with norms and
 // ||dv||^2 (the adaptive step); the two-phase clip's passes 7 (an update
 // with the next norms), 9 (the prologue's norms) and 10 (the last update)
-// up to 32 peers. n and vec pick the instantiation as a launch would.
+// up to 32 peers, with their dynamic shared memory. n and vec (0, 1, or 2:
+// the staged body of passes 0-3 and 8, n <= 8, with its dynamic shared
+// memory) pick the instantiation as a launch would.
 extern "C" int cc_pass_info(int pass, int n, int vec, int* out) {
   out[3] = 0;
+  if (pass == 5) return cc::kernel_info(cc::finish_weights_kernel, out);
+  if (pass == 6) return cc::kernel_info(cc::finish_tables_kernel<true>, out);
   if (pass == 7) return cc::clip_pass_info<0>(1, n, vec, out);
   if (pass == 9) return cc::clip_pass_info<0>(0, n, vec, out);
   if (pass == 10) return cc::clip_pass_info<0>(2, n, vec, out);
+  if (vec == cc::kStaged) {
+    if (n < 1 || n > 8) return static_cast<int>(cudaErrorInvalidValue);
+#define INFO(N)                                                              \
+  do {                                                                       \
+    const int s1 = cc::span_smem<0>(n, 1), m1 = cc::span_smem<0>(N, 1);      \
+    const int s2 = cc::span_smem<0>(n, 2), m2 = cc::span_smem<0>(N, 2);      \
+    switch (pass) {                                                          \
+      case 0:                                                                \
+        return cc::kernel_info(cc::sq_pass_kernel<N, 0, true, true>, out, s1, \
+                               m1);                                          \
+      case 1:                                                                \
+        return cc::kernel_info(                                              \
+            cc::update_kernel<N, 0, true, false, true, true>, out, s1, m1);  \
+      case 2:                                                                \
+        return cc::kernel_info(cc::dot_pass_kernel<N, 0, false, true, true>, \
+                               out, s2, m2);                                 \
+      case 3:                                                                \
+        return cc::kernel_info(cc::dot_pass_kernel<N, 0, true, true, true>,  \
+                               out, s2, m2);                                 \
+      case 8:                                                                \
+        return cc::kernel_info(                                              \
+            cc::update_kernel<N, 0, true, true, true, true>, out, s1, m1);   \
+      default:                                                               \
+        return static_cast<int>(cudaErrorInvalidValue);                      \
+    }                                                                        \
+  } while (0)
+    if (n <= 4) INFO(4);
+    INFO(8);
+#undef INFO
+  }
 #define INFO(N, V)                                                          \
   do {                                                                      \
     switch (pass) {                                                         \
@@ -261,8 +334,6 @@ extern "C" int cc_pass_info(int pass, int n, int vec, int* out) {
         break;                                                              \
     }                                                                       \
   } while (0)
-  if (pass == 5) return cc::kernel_info(cc::finish_weights_kernel, out);
-  if (pass == 6) return cc::kernel_info(cc::finish_tables_kernel<true>, out);
   CC_DISPATCH_PEERS(n, vec, INFO);
 #undef INFO
   return static_cast<int>(cudaErrorInvalidValue);

@@ -36,7 +36,9 @@
 //     of bf16, 4 of int8) per peer where every (peer, partition) row start
 //     is aligned (VEC), and otherwise the same 4 columns loaded one by one
 //     in the same order: one stack gives the same bits at any storage
-//     offset or row stride;
+//     offset or row stride; where every row start is 16-byte aligned, the
+//     two-phase clip and the norm, update and dot passes first copy their
+//     rows into shared memory ("The staged body ..."), summed in the same order;
 //   * a finishing kernel, one CTA per (partition, peer), sums the peer's C
 //     partials in a fixed tree (thread t takes partials t, t + 256, ... in
 //     turn, then the CTA's shuffle tree) and turns them into clip weights,
@@ -67,6 +69,7 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 #include <utility>
 
 // The two-phase clip's instantiations up to 32 peers: every register budget
@@ -341,6 +344,259 @@ __device__ __forceinline__ Chunk chunk_at(long long q, int C, long long cs,
   return ch;
 }
 
+// ---------------------------------------------------------------------------
+// Bulk copies into shared memory (the staged bodies of the two-phase clip
+// and of the wire passes): one thread asks the Tensor Memory Accelerator
+// for a 1-D copy (cp.async.bulk) that completes on an mbarrier.
+// ---------------------------------------------------------------------------
+constexpr int kSubCols = kThreads * 4;  // columns of a staged sub-tile
+// the dynamic shared memory a CTA may take (227 KB less the static arrays)
+constexpr int kStageBudget = 232448 - 2048;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Four consecutive elements of a staged row segment (shared memory),
+// dequantized as load_x does.
+template <int DT>
+__device__ __forceinline__ void tile_x(const typename Elem<DT>::T* p,
+                                       float sc, float (&o)[4]) {
+  if constexpr (DT == 0) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+  } else {
+    using V4 = typename std::conditional<DT == 1, char4, ushort4>::type;
+    const V4 q = *reinterpret_cast<const V4*>(p);
+    o[0] = __fmul_rn(Elem<DT>::f32(q.x), sc);
+    o[1] = __fmul_rn(Elem<DT>::f32(q.y), sc);
+    o[2] = __fmul_rn(Elem<DT>::f32(q.z), sc);
+    o[3] = __fmul_rn(Elem<DT>::f32(q.w), sc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The staged body of the norm, update and dot passes over float32, int8
+// and bf16 stacks, up to 8 peers where every row start is 16-byte aligned;
+// and of the two-phase clip's passes up to 32 peers (#4, #12, "The
+// two-phase clip" below).
+//
+// A group of 4 columns is 4 bytes of int8 (8 of bf16) a peer, so a thread
+// of the global body keeps a quarter (a half) of its float32 twin's bytes
+// of stack in flight, and the wire passes stream well below the twin's
+// rate; the float32 step that also sums ||dv||^2 sits at its 64-register
+// budget and streams below #1's update (PERF.md). The staged body keeps
+// the global body's order -- thread t sums the groups at columns k0 + 4t
+// + 1024 j of its chunk, j = 0, 1, ..., in turn, into the same block_sums
+// tree, so every bit is the global body's -- but one thread first copies a
+// span of kSpanBytes bytes of each peer's row (4 sub-tiles of 1024 columns
+// of int8, 2 of bf16, 1 of float32) and the same columns of the float32
+// vectors the pass reads (v; z in the dot pass) into shared memory with
+// cp.async.bulk, completing on an mbarrier, and every thread then reads its
+// groups from there. A CTA holds one stage (4 peers: 32 KiB of int8 in the
+// update, 48 KiB in the dot pass, 20 KiB of float32) and the copies of one
+// CTA overlap the arithmetic of the others resident on its SM; on an H100
+// (PERF.md) spans of 2 sub-tiles of int8 and 5 CTAs an SM in the update
+// read no faster. A span's copy of the stack is cut at d to whole 16
+// bytes; the groups past the cut load from global memory (load_x), the
+// same values. Above 8 peers (groups of one column) the norm, update and
+// dot passes keep the global body.
+// ---------------------------------------------------------------------------
+constexpr int kSpanBytes = 4096;  // bytes of a peer's row in a stage
+
+// Columns of a staged span: a whole number of sub-tiles.
+template <int DT>
+__host__ __device__ constexpr int span_cols() {
+  return kSpanBytes / static_cast<int>(sizeof(typename Elem<DT>::T));
+}
+
+// Dynamic shared memory of a staged pass over n peers that stages nf
+// float32 vectors: their span segments, the n stack rows, the mbarrier.
+template <int DT>
+__host__ __device__ constexpr int span_smem(int n, int nf) {
+  return span_cols<DT>() *
+             (4 * nf + n * static_cast<int>(sizeof(typename Elem<DT>::T))) +
+         8;
+}
+static_assert(span_smem<1>(8, 2) <= kStageBudget &&
+                  span_smem<2>(8, 2) <= kStageBudget &&
+                  span_smem<0>(8, 2) <= kStageBudget,
+              "an 8-peer stage fits a CTA");
+
+// Where a group's values come from in the staged body: x, the thread's
+// column in the stage's row of peer 0 (the rows a span apart; null where
+// the group lies past the copied bytes), and the same column of v's and
+// z's segments (null where the pass reads none). The global body's groups
+// take all three null and load from global memory.
+template <int DT>
+struct Src {
+  const typename Elem<DT>::T* x;
+  const float* v;
+  const float* z;
+};
+
+// Peer i's values in the group at column k: from the stage where it holds
+// them, else load_x.
+template <int G, bool VEC, int DT>
+__device__ __forceinline__ void src_load_x(const Stack<DT>& s,
+                                           const Src<DT>& src, int i,
+                                           long long p, long long k, Group g,
+                                           float sc, float (&o)[G]) {
+  if constexpr (G == 4) {
+    if (src.x != nullptr) {
+      tile_x<DT>(src.x + static_cast<long long>(i) * span_cols<DT>(), sc, o);
+      return;
+    }
+  }
+  load_x<G, VEC>(s, i, p, k, g, sc, o);
+}
+
+// The group's columns of a float32 vector (v, z): from its staged segment
+// `t` where given, else load_f from `row`.
+template <int G, bool VEC>
+__device__ __forceinline__ void src_load_f(const float* t, const float* row,
+                                           long long k, Group g,
+                                           float (&o)[G]) {
+  if constexpr (G == 4) {
+    if (t != nullptr) {
+      const float4 q = *reinterpret_cast<const float4*>(t);
+      o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+      return;
+    }
+  }
+  load_f<G, VEC>(row, k, g, o);
+}
+
+// A CTA's walk over the groups of its chunks. STAGED false (the global
+// body): thread t takes the groups at k0 + G t, k0 + G (t + 256), ... with
+// every source null. STAGED: the chunk in spans, each copied into the
+// CTA's one stage (NF staged float32 vectors: v, then z) and walked in the
+// same order, thread t at columns 4t + 1024 u of the span.
+template <int DT, bool STAGED, int NF>
+struct Walk {
+  using T = typename Elem<DT>::T;
+  static constexpr int kSpan = span_cols<DT>();
+  unsigned char* stage;
+  unsigned long long* bar;
+  unsigned phase;
+
+  // Every thread of the CTA constructs it (the mbarrier's initialisation
+  // ends on a barrier).
+  __device__ explicit Walk(int n) : stage(nullptr), bar(nullptr), phase(0) {
+    if constexpr (STAGED) {
+      extern __shared__ __align__(128) unsigned char span_stage[];
+      stage = span_stage;
+      bar = reinterpret_cast<unsigned long long*>(
+          stage + (span_smem<DT>(n, NF) - 8));
+      if (threadIdx.x == 0) {
+        mbar_init(bar);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      }
+      __syncthreads();
+    }
+  }
+
+  // body(k, src) for each of the thread's groups of chunk ch of partition
+  // p, in order; v and z are the partition's rows of the vectors the pass
+  // reads (null: none; v null reads as zeros).
+  template <int G, typename Body>
+  __device__ __forceinline__ void run(const Stack<DT>& s, const Chunk& ch,
+                                      long long p, const float* v,
+                                      const float* z, Body&& body) {
+    if constexpr (!STAGED) {
+      for (long long k = ch.k0 + threadIdx.x * G; k < ch.k1;
+           k += kThreads * G)
+        body(k, Src<DT>{nullptr, nullptr, nullptr});
+    } else {
+      static_assert(G == 4, "the staged body takes groups of 4");
+      const float* vs = reinterpret_cast<const float*>(stage);
+      const float* zs = vs + (NF - 1) * kSpan;
+      T* xs = reinterpret_cast<T*>(stage + kSpan * 4 * NF);
+      for (long long kb = ch.k0; kb < ch.k1; kb += kSpan) {
+        const long long cols = min(static_cast<long long>(kSpan), ch.k1 - kb);
+        const long long valid =
+            max(0LL, min(cols, s.d - (p * s.part + kb)));
+        const long long lim =
+            static_cast<long long>((valid * sizeof(T)) & ~15LL) /
+            static_cast<long long>(sizeof(T));
+        if (threadIdx.x == 0) {
+          // the stage's last reads (generic proxy) before the copies
+          // (async proxy) that overwrite it
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          const unsigned fb = static_cast<unsigned>(cols * 4);
+          const unsigned xb = static_cast<unsigned>(lim * sizeof(T));
+          mbar_expect_tx(bar, (v != nullptr ? fb : 0u) +
+                                  (NF == 2 && z != nullptr ? fb : 0u) +
+                                  xb * s.n);
+          if (v != nullptr) bulk_copy(stage, v + kb, fb, bar);
+          if (NF == 2 && z != nullptr)
+            bulk_copy(stage + kSpan * 4, z + kb, fb, bar);
+          if (xb != 0) {
+            for (int i = 0; i < s.n; ++i)
+              bulk_copy(xs + static_cast<long long>(i) * kSpan,
+                        s.x + static_cast<long long>(i) * s.ld + p * s.part +
+                            kb,
+                        xb, bar);
+          }
+        }
+        mbar_wait(bar, phase);
+        phase ^= 1u;
+        // one call of the body (so the compiler inlines it, its arrays in
+        // registers) per sub-tile, in order
+#pragma unroll 1
+        for (int u = 0; u < kSpan / kSubCols; ++u) {
+          const long long c = u * kSubCols + threadIdx.x * 4;
+          if (kb + c < ch.k1) {
+            body(kb + c, Src<DT>{c + 4 <= lim ? xs + c : nullptr,
+                                 v != nullptr ? vs + c : nullptr,
+                                 NF == 2 && z != nullptr ? zs + c : nullptr});
+          }
+        }
+        __syncthreads();  // every thread is done with the stage
+      }
+    }
+  }
+};
+
 // The reduction passes above 32 peers (see "Peer tiles"): the CTA walks
 // its chunk once per tile of MAXN peers, in index order, and writes the
 // tile's slice of its column of the (rows, n, C) partials: <x_i - v, z>
@@ -378,12 +634,13 @@ __device__ void reduce_tiled(const Stack<DT>& s, long long p, long long k0,
 // Pass: per-peer partial sums of ||x_i - v||^2 over each chunk; v null
 // reads as zero (the prologue of a cold start). At 16 peers the compiler's
 // own choice is 119 registers (2 CTAs an SM); 3 CTAs keep it near its
-// earlier 75.
-template <int MAXN, int DT, bool VEC>
+// earlier 75. STAGED: the staged body (VEC, up to 8 peers).
+template <int MAXN, int DT, bool VEC, bool STAGED = false>
 __global__ void __launch_bounds__(kThreads, MAXN == 16 ? 3 : 1)
 sq_pass_kernel(Stack<DT> s, const float* v, long long cs, int C, int rows,
                float* __restrict__ sq_part) {
   constexpr int G = group_cols<MAXN>();
+  Walk<DT, STAGED, 1> walk(s.n);
   const long long chunks = static_cast<long long>(rows) * C;
   for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
     const Chunk ch = chunk_at(q, C, cs, s.part);
@@ -401,16 +658,16 @@ sq_pass_kernel(Stack<DT> s, const float* v, long long cs, int C, int rows,
       acc[i] = 0.f;
       sc[i] = peer_scale(s, i, p);
     }
-    for (long long k = ch.k0 + threadIdx.x * G; k < ch.k1;
-         k += kThreads * G) {
+    walk.template run<G>(s, ch, p, vp, nullptr, [&](long long k,
+                                                    const Src<DT>& src) {
       const Group g = group_at<G, VEC>(s, p, k, ch.k1);
       float vg[G];
-      load_f<G, VEC>(vp, k, g, vg);
+      src_load_f<G, VEC>(src.v, vp, k, g, vg);
 #pragma unroll
       for (int i = 0; i < MAXN; ++i) {
         if (i < s.n) {
           float xg[G];
-          load_x<G, VEC>(s, i, p, k, g, sc[i], xg);
+          src_load_x<G, VEC>(s, src, i, p, k, g, sc[i], xg);
 #pragma unroll
           for (int e = 0; e < G; ++e) {
             if (e < g.nv) {
@@ -420,7 +677,7 @@ sq_pass_kernel(Stack<DT> s, const float* v, long long cs, int C, int rows,
           }
         }
       }
-    }
+    });
     block_sums<MAXN>(acc, s.n, out, C);
   }
 }
@@ -498,16 +755,18 @@ __device__ void update_tiled(const Stack<DT>& s, long long p, int c, int C,
 // / wsum, column by column (in place when v_in == v_out; v_in null reads
 // as zero, the first iteration of a cold start). SQ: also the NEXT
 // iteration's squared norms, sum ||diff - upd||^2 from values already in
-// registers (the fused kernel's incremental norms). D2 (in place only):
-// also ||v_new - v||^2 partials, and partitions with d2[p] <= tol2 are
-// frozen (the adaptive loop's select). Above 32 peers: update_tiled, with
-// the (P, part) scratch `u` when SQ.
+// registers (the fused kernel's incremental norms). D2: also ||v_new -
+// v||^2 partials, and partitions with d2[p] <= tol2 are frozen (the
+// adaptive loop's select): not read and not written, so v_in != v_out only
+// where every d2[p] > tol2 (a first step, d2 = +inf). Above 32 peers:
+// update_tiled, with the (P, part) scratch `u` when SQ. STAGED: the staged
+// body.
 //
 // Registers: at 4 peers the compiler's own choice (104-116 a thread, 2
 // CTAs an SM) streamed at 2.1 TB/s on an H100 SXM, and a budget of 64 (4
 // CTAs, no spills) at 2.8 TB/s (chip_smoke.py --breakdown, PERF.md), so
 // the 4-peer instantiations ask for 4 resident CTAs.
-template <int MAXN, int DT, bool SQ, bool D2, bool VEC>
+template <int MAXN, int DT, bool SQ, bool D2, bool VEC, bool STAGED = false>
 __global__ void __launch_bounds__(kThreads, MAXN <= 4 ? 4 : 1)
 update_kernel(Stack<DT> s, const float* vin, float* vout,
               const float* __restrict__ cw, const float* __restrict__ wsum,
@@ -515,6 +774,7 @@ update_kernel(Stack<DT> s, const float* vin, float* vout,
               float* __restrict__ d2_part, const float* __restrict__ d2,
               float tol2, float* __restrict__ u) {
   constexpr int G = group_cols<MAXN>();
+  Walk<DT, STAGED, 1> walk(s.n);
   const float ws = *wsum;
   const long long chunks = static_cast<long long>(rows) * C;
   for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
@@ -537,18 +797,18 @@ update_kernel(Stack<DT> s, const float* vin, float* vout,
       sc[i] = peer_scale(s, i, p);
     }
     float dacc = 0.f;
-    for (long long k = ch.k0 + threadIdx.x * G; k < ch.k1;
-         k += kThreads * G) {
+    walk.template run<G>(s, ch, p, vi, nullptr, [&](long long k,
+                                                    const Src<DT>& src) {
       const Group g = group_at<G, VEC>(s, p, k, ch.k1);
       float vg[G], num[G], diff[MAXN][G];
-      load_f<G, VEC>(vi, k, g, vg);
+      src_load_f<G, VEC>(src.v, vi, k, g, vg);
 #pragma unroll
       for (int e = 0; e < G; ++e) num[e] = 0.f;
 #pragma unroll
       for (int i = 0; i < MAXN; ++i) {
         if (i < s.n) {
           float xg[G];
-          load_x<G, VEC>(s, i, p, k, g, sc[i], xg);
+          src_load_x<G, VEC>(s, src, i, p, k, g, sc[i], xg);
 #pragma unroll
           for (int e = 0; e < G; ++e) {
             diff[i][e] = __fsub_rn(xg[e], vg[e]);
@@ -581,7 +841,7 @@ update_kernel(Stack<DT> s, const float* vin, float* vout,
           }
         }
       }
-    }
+    });
     if (SQ) block_sums<MAXN>(acc, s.n, sq_part + p * s.n * C + ch.c, C);
     if (D2) {
       const float t = block_sum1(dacc);
@@ -602,126 +862,28 @@ update_kernel(Stack<DT> s, const float* vin, float* vout,
 // is 4 columns at every n <= 32, thread t taking columns k0 + 4t + 1024 j
 // of its chunk (the 1024-column sub-tile j), so one pass sums each peer's
 // norm in the order of sq_pass_kernel at <= 8 peers, and the bits follow
-// from the chunk grid alone. Two bodies, one arithmetic:
-//   * staged (every row start 16-byte aligned): one thread copies each
-//     sub-tile's n row segments (and v's) into shared memory with 1-D bulk
-//     copies (cp.async.bulk, the Tensor Memory Accelerator), completing on
-//     an mbarrier; each thread reads its 4 columns of each peer from shared
-//     memory twice, once for the update and once for the norms (16-byte
-//     loads of float32), so no thread holds n x 4 values;
-//   * global (a row start off 16 bytes): the same two sweeps with loads
-//     from global memory, column by column where unaligned.
-// A CTA holds one stage, and the copies of one CTA overlap the arithmetic
-// of the others resident on its SM: on an H100 (PERF.md) one 69,640-byte
-// stage at 16 peers, 2-3 CTAs an SM, read 3.0 TB/s in the update, and one
-// CTA with a ring of 2 or 3 stages 2.3; at 4 peers one stage (4 CTAs an
-// SM) matched 2 and 3 and beat a body that kept the group's values in
-// registers (3.83 against 4.07 ms for #4).
+// from the chunk grid alone. Two bodies, one arithmetic: the staged body
+// ("The staged body of the norm, update and dot passes") where every row
+// start is 16-byte aligned, each thread reading its 4 columns of each peer
+// from shared memory twice, once for the update and once for the norms, so
+// no thread holds n x 4 values; else the same two sweeps with loads from
+// global memory, column by column where unaligned. On an H100 (PERF.md)
+// one 69,640-byte stage at 16 peers, 2-3 CTAs an SM, read 3.0 TB/s in the
+// update, and one CTA with a ring of 2 or 3 stages 2.3; at 4 peers one
+// stage (4 CTAs an SM) matched 2 and 3 and beat a body that kept the
+// group's values in registers (3.83 against 4.07 ms for #4).
 // Above 32 peers the two-phase clip keeps its two passes an iteration
 // (sq_pass_kernel and update_kernel, peer-tiled).
 // ---------------------------------------------------------------------------
-constexpr int kSubCols = kThreads * 4;  // columns of a staged sub-tile
-// the dynamic shared memory a CTA may take (227 KB less the static arrays)
-constexpr int kStageBudget = 232448 - 2048;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
-                                               unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16) from global src to shared dst, both 16-byte
-// aligned, completing on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// The stage of an n-peer stack of es-byte elements: v's row segment (f32)
-// and n row segments of the stack, kSubCols each.
-__host__ __device__ constexpr long long stage_bytes(int n, int es) {
-  return static_cast<long long>(kSubCols) *
-         (4 + static_cast<long long>(n) * es);
-}
-
 // Dynamic shared memory of the two-phase pass over n peers: the staged
-// body's stage and its mbarrier (vec), else none.
-constexpr int clip_smem(int n, int es, bool vec) {
-  return vec ? static_cast<int>(stage_bytes(n, es)) + 8 : 0;
-}
-static_assert(clip_smem(32, 4, true) <= kStageBudget,
-              "a 32-peer float32 stage fits a CTA");
-
-// Four consecutive elements of a staged row segment (shared memory).
+// body's stage (vec), else none.
 template <int DT>
-__device__ __forceinline__ void tile_x(const typename Elem<DT>::T* p,
-                                       float sc, float (&o)[4]) {
-  if constexpr (DT == 0) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
-  } else {
-    static_assert(DT == 2, "the two-phase clip stages float32 or bf16");
-    const ushort4 q = *reinterpret_cast<const ushort4*>(p);
-    o[0] = __fmul_rn(Elem<2>::f32(q.x), sc);
-    o[1] = __fmul_rn(Elem<2>::f32(q.y), sc);
-    o[2] = __fmul_rn(Elem<2>::f32(q.z), sc);
-    o[3] = __fmul_rn(Elem<2>::f32(q.w), sc);
-  }
+constexpr int clip_smem(int n, bool vec) {
+  return vec ? span_smem<DT>(n, 1) : 0;
 }
-
-// Where a group's values come from: x_i for sweep `i` and v. `tile` (the
-// staged body, null otherwise) is the thread's column in the sub-tile's
-// first stack row, `vt` the same in v's row; `lim` the sub-tile's columns
-// that were copied (the rest, past d or in a tail shorter than 16 bytes,
-// load from global memory).
-template <int DT>
-struct GroupSrc {
-  const typename Elem<DT>::T* tile;
-  const float* vt;
-  bool in_tile;
-};
-
-template <int DT, bool VEC>
-__device__ __forceinline__ void src_x(const Stack<DT>& s,
-                                      const GroupSrc<DT>& src, int i,
-                                      long long p, long long k, Group g,
-                                      float sc, float (&o)[4]) {
-  if (src.tile != nullptr && src.in_tile) {
-    tile_x<DT>(src.tile + static_cast<long long>(i) * kSubCols, sc, o);
-  } else {
-    load_x<4, VEC>(s, i, p, k, g, sc, o);
-  }
-}
+static_assert(clip_smem<0>(32, true) <= kStageBudget &&
+                  clip_smem<2>(32, true) <= kStageBudget,
+              "a 32-peer stage fits a CTA");
 
 // One group of the two-phase pass. UPD: v_out = v_in + sum_i cw_i (x_i -
 // v_in) / wsum, peers in index order (vin null: zeros). NEXT: acc[i] +=
@@ -729,26 +891,21 @@ __device__ __forceinline__ void src_x(const Stack<DT>& s,
 // (the prologue), each x_i read again from `src`.
 template <int MAXN, int DT, bool UPD, bool NEXT, bool VEC>
 __device__ __forceinline__ void clip_group(const Stack<DT>& s,
-                                           const GroupSrc<DT>& src,
-                                           long long p, long long k, Group g,
+                                           const Src<DT>& src, long long p,
+                                           long long k, Group g,
                                            const float* vi, float* vo,
                                            const float (&w)[MAXN],
                                            const float (&sc)[MAXN], float ws,
                                            float (&acc)[MAXN]) {
   float vg[4], vn[4];
-  if (src.vt != nullptr && src.in_tile) {
-    const float4 q = *reinterpret_cast<const float4*>(src.vt);
-    vg[0] = q.x, vg[1] = q.y, vg[2] = q.z, vg[3] = q.w;
-  } else {
-    load_f<4, VEC>(vi, k, g, vg);
-  }
+  src_load_f<4, VEC>(src.v, vi, k, g, vg);
   if constexpr (UPD) {
     float num[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < MAXN; ++i) {
       if (i < s.n) {
         float xg[4];
-        src_x<DT, VEC>(s, src, i, p, k, g, sc[i], xg);
+        src_load_x<4, VEC>(s, src, i, p, k, g, sc[i], xg);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           num[e] = __fmaf_rn(w[i], __fsub_rn(xg[e], vg[e]), num[e]);
@@ -766,7 +923,7 @@ __device__ __forceinline__ void clip_group(const Stack<DT>& s,
     for (int i = 0; i < MAXN; ++i) {
       if (i < s.n) {
         float xg[4];
-        src_x<DT, VEC>(s, src, i, p, k, g, sc[i], xg);
+        src_load_x<4, VEC>(s, src, i, p, k, g, sc[i], xg);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           if (e < g.nv) {
@@ -776,32 +933,6 @@ __device__ __forceinline__ void clip_group(const Stack<DT>& s,
         }
       }
     }
-  }
-}
-
-// The staged body's copies of the sub-tile at column kb of chunk ch: the n
-// row segments of the stack (their columns before d, cut to whole 16
-// bytes) and, when the pass reads v, v's segment, all completing on `bar`.
-template <int DT>
-__device__ __forceinline__ void copy_sub_tile(const Stack<DT>& s,
-                                               const float* v, const Chunk& ch,
-                                               long long kb,
-                                               unsigned char* stage,
-                                               unsigned long long* bar) {
-  using T = typename Elem<DT>::T;
-  const long long cols = min(static_cast<long long>(kSubCols), ch.k1 - kb);
-  const long long valid =
-      max(0LL, min(cols, s.d - (ch.r * s.part + kb)));
-  const unsigned xb = static_cast<unsigned>(valid * sizeof(T)) & ~15u;
-  const unsigned vb = v == nullptr ? 0u : static_cast<unsigned>(cols * 4);
-  mbar_expect_tx(bar, vb + xb * s.n);
-  if (vb != 0) bulk_copy(stage, v + ch.r * s.part + kb, vb, bar);
-  if (xb != 0) {
-    T* rows = reinterpret_cast<T*>(stage + kSubCols * 4);
-    for (int i = 0; i < s.n; ++i)
-      bulk_copy(rows + static_cast<long long>(i) * kSubCols,
-                s.x + static_cast<long long>(i) * s.ld + ch.r * s.part + kb,
-                xb, bar);
   }
 }
 
@@ -816,20 +947,9 @@ clip_pass_kernel(Stack<DT> s, const float* vin, float* vout,
                  const float* __restrict__ cw, const float* __restrict__ wsum,
                  long long cs, int C, int rows, float* __restrict__ sq_part) {
   static_assert(UPD || NEXT, "a pass updates, forms norms, or both");
-  using T = typename Elem<DT>::T;
-  extern __shared__ __align__(128) unsigned char dyn[];
+  Walk<DT, VEC, 1> walk(s.n);
   const float ws = UPD ? *wsum : 1.f;
   const long long chunks = static_cast<long long>(rows) * C;
-  auto* full =
-      reinterpret_cast<unsigned long long*>(dyn + stage_bytes(s.n, sizeof(T)));
-  if constexpr (VEC) {
-    if (threadIdx.x == 0) {
-      mbar_init(full);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-    __syncthreads();
-  }
-  unsigned phase = 0;
   for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
     const Chunk ch = chunk_at(q, C, cs, s.part);
     const long long p = ch.r;
@@ -842,37 +962,12 @@ clip_pass_kernel(Stack<DT> s, const float* vin, float* vout,
       acc[i] = 0.f;
       sc[i] = peer_scale(s, i, p);
     }
-    for (long long kb = ch.k0; kb < ch.k1; kb += kSubCols) {
-      const long long k = kb + threadIdx.x * 4;
-      GroupSrc<DT> src{nullptr, nullptr, false};
-      if constexpr (VEC) {
-        if (threadIdx.x == 0) {
-          // the stage's last reads (generic proxy) before the copies
-          // (async proxy) that overwrite it
-          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          copy_sub_tile<DT>(s, vin, ch, kb, dyn, full);
-        }
-        mbar_wait(full, phase);
-        phase ^= 1u;
-        const long long cols =
-            min(static_cast<long long>(kSubCols), ch.k1 - kb);
-        const long long valid = max(0LL, min(cols, s.d - (p * s.part + kb)));
-        const long long lim = static_cast<long long>(
-            (valid * sizeof(T)) & ~15LL) / static_cast<long long>(sizeof(T));
-        src.vt = vi == nullptr
-                     ? nullptr
-                     : reinterpret_cast<const float*>(dyn) + threadIdx.x * 4;
-        src.tile = reinterpret_cast<const T*>(dyn + kSubCols * 4) +
-                   threadIdx.x * 4;
-        src.in_tile = threadIdx.x * 4 + 4 <= lim;
-      }
-      if (k < ch.k1) {
-        const Group g = group_at<4, VEC>(s, p, k, ch.k1);
-        clip_group<MAXN, DT, UPD, NEXT, VEC>(s, src, p, k, g, vi, vo, w, sc,
-                                             ws, acc);
-      }
-      if constexpr (VEC) __syncthreads();  // every thread is done with it
-    }
+    walk.template run<4>(s, ch, p, vi, nullptr, [&](long long k,
+                                                    const Src<DT>& src) {
+      const Group g = group_at<4, VEC>(s, p, k, ch.k1);
+      clip_group<MAXN, DT, UPD, NEXT, VEC>(s, src, p, k, g, vi, vo, w, sc,
+                                           ws, acc);
+    });
     if (NEXT) block_sums<MAXN>(acc, s.n, sq_part + p * s.n * C + ch.c, C);
   }
 }
@@ -882,12 +977,14 @@ clip_pass_kernel(Stack<DT> s, const float* vin, float* vout,
 // given (the sampled-digest pass: only the k sampled partitions are read),
 // and writes row j of the partials. The body is the same either way, so
 // row j of a sampled pass has the bits of row rows_at[j] of the full pass.
-template <int MAXN, int DT, bool SQ, bool VEC>
+// STAGED: the staged body (v and z staged with the stack).
+template <int MAXN, int DT, bool SQ, bool VEC, bool STAGED = false>
 __global__ void __launch_bounds__(kThreads)
 dot_pass_kernel(Stack<DT> s, const float* v, const float* __restrict__ z,
                 long long cs, int C, int rows, float* __restrict__ dot_part,
                 float* __restrict__ sq_part, const int* __restrict__ rows_at) {
   constexpr int G = group_cols<MAXN>();
+  Walk<DT, STAGED, 2> walk(s.n);
   const long long chunks = static_cast<long long>(rows) * C;
   for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
     const Chunk ch = chunk_at(q, C, cs, s.part);
@@ -909,17 +1006,17 @@ dot_pass_kernel(Stack<DT> s, const float* v, const float* __restrict__ z,
       dacc[i] = sacc[i] = 0.f;
       sc[i] = peer_scale(s, i, p);
     }
-    for (long long k = ch.k0 + threadIdx.x * G; k < ch.k1;
-         k += kThreads * G) {
+    walk.template run<G>(s, ch, p, vp, zp, [&](long long k,
+                                               const Src<DT>& src) {
       const Group g = group_at<G, VEC>(s, p, k, ch.k1);
       float vg[G], zg[G];
-      load_f<G, VEC>(vp, k, g, vg);
-      load_f<G, VEC>(zp, k, g, zg);
+      src_load_f<G, VEC>(src.v, vp, k, g, vg);
+      src_load_f<G, VEC>(src.z, zp, k, g, zg);
 #pragma unroll
       for (int i = 0; i < MAXN; ++i) {
         if (i < s.n) {
           float xg[G];
-          load_x<G, VEC>(s, i, p, k, g, sc[i], xg);
+          src_load_x<G, VEC>(s, src, i, p, k, g, sc[i], xg);
 #pragma unroll
           for (int e = 0; e < G; ++e) {
             if (e < g.nv) {
@@ -930,7 +1027,7 @@ dot_pass_kernel(Stack<DT> s, const float* v, const float* __restrict__ z,
           }
         }
       }
-    }
+    });
     block_sums<MAXN>(dacc, s.n, dout, C);
     if (SQ) block_sums<MAXN>(sacc, s.n, sout, C);
   }
@@ -994,23 +1091,35 @@ mean_pass_kernel(Stack<DT> s, const float* __restrict__ w, long long cs,
 // Finish: CTA (p, b) of a (P, B) grid (kThreads threads) takes partition
 // p's peers i = b, b + B, ... sq[p, i] = the fixed tree's sum of peer i's
 // C partials, cw[p, i] = clip_weight(sq, tau) * w[i]; wsum = max(sum_i
-// w_i, 1e-30). With d2/d2_part (adaptive step; B = 1, one CTA a
-// partition): only partitions with d2[p] > tol2 are touched, d2[p] takes
-// this step's ||dv||^2 and iters[p] counts the step. Every thread reads
-// d2[p] before the first barrier; thread 0 writes it after the last.
+// w_i, 1e-30). With d2/d2_part (the adaptive step) only the partitions
+// that took this step (d2[p] > tol2) are finished, and CTA (p, 0) also
+// sums their ||dv||^2 into d2[p] and counts the step in iters[p]: all its
+// threads read d2[p] before its barriers and thread 0 writes it after
+// them. Another CTA of p may read d2[p] before or after that write; if
+// after, and p has just converged, it leaves p's sq and cw as they were,
+// which no later step reads (p is frozen). d2_seen (pinned host memory,
+// mapped; may be null): thread 0 of CTA (p, 0) also writes d2[p] there,
+// for the host to read once an event behind this kernel has completed.
 __global__ void __launch_bounds__(kThreads) finish_weights_kernel(
     const float* __restrict__ sq_part, int C, int n,
     const float* __restrict__ w, float tau, float* __restrict__ sq_out,
     float* __restrict__ cw_out, float* __restrict__ wsum_out,
     const float* __restrict__ d2_part, float* d2, int* __restrict__ iters,
-    float tol2) {
+    float tol2, float* d2_seen) {
   const long long p = blockIdx.x;
   if (p == 0 && blockIdx.y == 0 && threadIdx.x == 0 && wsum_out != nullptr) {
     float t = 0.f;
     for (int j = 0; j < n; ++j) t += w[j];
     *wsum_out = fmaxf(t, 1e-30f);
   }
-  if (d2 != nullptr && !(d2[p] > tol2)) return;  // frozen partition
+  if (d2 != nullptr) {
+    const float was = d2[p];
+    if (!(was > tol2)) {  // frozen partition
+      if (blockIdx.y == 0 && threadIdx.x == 0 && d2_seen != nullptr)
+        d2_seen[p] = was;
+      return;
+    }
+  }
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const float sq = fixed_sum(sq_part + (p * n + i) * C, C);
     if (threadIdx.x == 0) {
@@ -1018,11 +1127,12 @@ __global__ void __launch_bounds__(kThreads) finish_weights_kernel(
       cw_out[p * n + i] = clip_weight(sq, tau) * w[i];
     }
   }
-  if (d2 != nullptr) {
-    const float t = fixed_sum(d2_part + p * C, C);
+  if (d2 != nullptr && blockIdx.y == 0) {
+    const float now = fixed_sum(d2_part + p * C, C);
     if (threadIdx.x == 0) {
-      d2[p] = t;
+      d2[p] = now;
       iters[p] += 1;
+      if (d2_seen != nullptr) d2_seen[p] = now;
     }
   }
 }
@@ -1178,6 +1288,25 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
+// `vec` of a pass that has a staged body: 0 column by column, 1 the 16-byte
+// loads, kStaged the staged body ("The staged body of the norm, update
+// and dot passes").
+constexpr int kStaged = 2;
+
+// 0 where the staged body can run over s with the float32 vectors f0, f1
+// (null: not read): n <= most (8; the two-phase clip's 32) and every row
+// start of the stack and each vector 16-byte aligned; else the error its
+// launcher returns, unlaunched.
+template <int DT>
+int staged_status(const Stack<DT>& s, const void* f0, const void* f1,
+                  int most = 8) {
+  constexpr long long es = sizeof(typename Elem<DT>::T);
+  if (s.n > most) return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok = aligned16(s.x) && (s.ld * es) % 16 == 0 &&
+                  (s.part * es) % 16 == 0 && aligned16(f0) && aligned16(f1);
+  return ok ? 0 : static_cast<int>(cudaErrorMisalignedAddress);
+}
+
 // Launch one pass of the two-phase clip over P partitions (vout null: the
 // prologue's norms at vin; sq_part null: the last update). Up to 32 peers
 // it is clip_pass_kernel, the staged body where `vec` says every row start
@@ -1205,15 +1334,11 @@ int clip_pass(const Stack<DT>& s, int P, long long cs, int C, int vec,
     }
     return launch_status();
   }
-  constexpr int es = sizeof(typename Elem<DT>::T);
-  if (vec &&
-      !(aligned16(s.x) && (s.ld * es) % 16 == 0 && (s.part * es) % 16 == 0 &&
-        aligned16(vin) && aligned16(vout)))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  int rc = 0;
+  int rc = vec ? staged_status(s, vin, vout, kTile) : 0;
+  if (rc != 0) return rc;
 #define CC_CLIP_LAUNCH(N, V)                                                 \
   do {                                                                       \
-    const int smem = clip_smem(s.n, es, V), most = clip_smem(N, es, V);      \
+    const int smem = clip_smem<DT>(s.n, V), most = clip_smem<DT>(N, V);      \
     if (upd && next) {                                                       \
       rc = launch_pass_smem(clip_pass_kernel<N, DT, true, true, V>, chunks,  \
                             smem, most, st, s, vin, vout, cw, wsum, cs, C,   \
@@ -1238,12 +1363,11 @@ int clip_pass(const Stack<DT>& s, int P, long long cs, int C, int vec,
 // kernel_info, with the dynamic shared memory a launch gives it.
 template <int DT>
 int clip_pass_info(int mode, int n, int vec, int* out) {
-  constexpr int es = sizeof(typename Elem<DT>::T);
   if (n < 1 || n > kTile || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
 #define CC_CLIP_INFO(N, V)                                                 \
   do {                                                                     \
-    const int smem = clip_smem(n, es, V), most = clip_smem(N, es, V);      \
+    const int smem = clip_smem<DT>(n, V), most = clip_smem<DT>(N, V);      \
     if (mode == 1)                                                         \
       return kernel_info(clip_pass_kernel<N, DT, true, true, V>, out, smem, \
                          most);                                            \
@@ -1259,6 +1383,24 @@ int clip_pass_info(int mode, int n, int vec, int* out) {
 }
 
 }  // namespace cc
+
+// Return from the launcher after launching the staged instantiation
+// KERNEL(N) (N = 4 or 8; KERNEL defined by the caller) of a pass over n
+// peers that stages NF float32 vectors, with its stage's dynamic shared
+// memory (the kernel allowed its N-peer stage once). Needs DT, n, chunks
+// and st in scope.
+#define CC_LAUNCH_STAGED(NF, ...)                                           \
+  do {                                                                      \
+    const int smem = cc::span_smem<DT>(n, NF);                              \
+    const int rc_ =                                                         \
+        n <= 4 ? cc::launch_pass_smem(KERNEL(4), chunks, smem,              \
+                                      cc::span_smem<DT>(4, NF), st,         \
+                                      __VA_ARGS__)                          \
+               : cc::launch_pass_smem(KERNEL(8), chunks, smem,              \
+                                      cc::span_smem<DT>(8, NF), st,         \
+                                      __VA_ARGS__);                         \
+    return rc_ != 0 ? rc_ : cc::launch_status();                            \
+  } while (0)
 
 // Instantiate LAUNCH(MAXN, VEC) for the smallest register budget that holds
 // n peers, with 16-byte loads (VEC) where the host found every row start

@@ -26,6 +26,13 @@ int sq_pass(const void* x, const float* scales, long long ld, long long part,
             const float* v, float* sq_part, cudaStream_t st) {
   const auto s = cc::make_stack<DT>(x, scales, ld, part, d, n);
   const long long chunks = static_cast<long long>(P) * C;
+  if (vec == cc::kStaged) {
+    const int rc = cc::staged_status(s, v, nullptr);
+    if (rc != 0) return rc;
+#define KERNEL(N) cc::sq_pass_kernel<N, DT, true, true>
+    CC_LAUNCH_STAGED(1, s, v, cs, C, P, sq_part);
+#undef KERNEL
+  }
 #define LAUNCH(N, V)                                                   \
   cc::launch_pass(cc::sq_pass_kernel<N, DT, V>, chunks, st, s, v, cs, C, \
                   P, sq_part)
@@ -43,6 +50,14 @@ int update(const void* x, const float* scales, long long ld, long long part,
   const long long chunks = static_cast<long long>(P) * C;
   const float* no_d2 = nullptr;
   float* no_part = nullptr;
+  if (vec == cc::kStaged) {
+    const int rc = cc::staged_status(s, vin, vout);
+    if (rc != 0) return rc;
+#define KERNEL(N) cc::update_kernel<N, DT, true, false, true, true>
+    CC_LAUNCH_STAGED(1, s, vin, vout, cw, wsum, cs, C, P, sq_part,
+                no_part, no_d2, 0.f, scratch);
+#undef KERNEL
+  }
 #define LAUNCH(N, V)                                                       \
   cc::launch_pass(cc::update_kernel<N, DT, true, false, V>, chunks, st, s, \
                   vin, vout, cw, wsum, cs, C, P, sq_part, no_part, no_d2,  \
@@ -60,6 +75,18 @@ int dot_pass(const void* x, const float* scales, long long ld,
   const auto s = cc::make_stack<DT>(x, scales, ld, part, d, n);
   const long long chunks = static_cast<long long>(P) * C;
   const int* all_rows = nullptr;
+  if (vec == cc::kStaged) {
+    const int rc = cc::staged_status(s, v, z);
+    if (rc != 0) return rc;
+    if (sq_part != nullptr) {
+#define KERNEL(N) cc::dot_pass_kernel<N, DT, true, true, true>
+      CC_LAUNCH_STAGED(2, s, v, z, cs, C, P, dot_part, sq_part, all_rows);
+#undef KERNEL
+    }
+#define KERNEL(N) cc::dot_pass_kernel<N, DT, false, true, true>
+    CC_LAUNCH_STAGED(2, s, v, z, cs, C, P, dot_part, sq_part, all_rows);
+#undef KERNEL
+  }
 #define LAUNCH(N, V)                                                         \
   do {                                                                       \
     if (sq_part != nullptr) {                                                \
@@ -93,9 +120,13 @@ int mean_pass(const void* x, const float* scales, long long ld,
 
 // ---------------------------------------------------------------------------
 // Plain C launchers (loaded with ctypes), as in centered_clip.cu, with the
-// element type and the (P, n) scales in front. `vec`: every (peer,
+// element type and the (P, n) scales in front. `vec` 1: every (peer,
 // partition) row start of the payload 4 elements aligned (4 bytes of int8,
-// 8 of bf16) and the float32 vectors' 16 bytes.
+// 8 of bf16) and the float32 vectors' 16 bytes. `vec` 2 (the norm, update
+// and dot passes up to 8 peers): the staged body, every row start of the
+// payload and the vectors 16-byte aligned; an ask it cannot run is
+// refused (cudaErrorInvalidValue above 8 peers,
+// cudaErrorMisalignedAddress off 16 bytes), never run another way.
 // ---------------------------------------------------------------------------
 #define WIRE_DISPATCH(fn, ...)                                   \
   do {                                                           \
@@ -162,4 +193,69 @@ extern "C" int wire_mean_pass(int dtype, const void* x, const float* scales,
                               const float* w, float* v, void* stream) {
   WIRE_DISPATCH(mean_pass, x, scales, ld, part, d, n, P, cs, C, vec, w, v,
                 static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+template <int DT>
+int pass_info(int pass, int n, int vec, int* out) {
+  out[3] = 0;
+  if (vec == cc::kStaged) {
+    if (n < 1 || n > 8) return static_cast<int>(cudaErrorInvalidValue);
+#define INFO(N)                                                               \
+  do {                                                                        \
+    const int s1 = cc::span_smem<DT>(n, 1), m1 = cc::span_smem<DT>(N, 1);     \
+    const int s2 = cc::span_smem<DT>(n, 2), m2 = cc::span_smem<DT>(N, 2);     \
+    switch (pass) {                                                           \
+      case 0:                                                                 \
+        return cc::kernel_info(cc::sq_pass_kernel<N, DT, true, true>, out, s1, \
+                               m1);                                           \
+      case 1:                                                                 \
+        return cc::kernel_info(                                               \
+            cc::update_kernel<N, DT, true, false, true, true>, out, s1, m1);  \
+      case 2:                                                                 \
+        return cc::kernel_info(cc::dot_pass_kernel<N, DT, false, true, true>, \
+                               out, s2, m2);                                  \
+      case 3:                                                                 \
+        return cc::kernel_info(cc::dot_pass_kernel<N, DT, true, true, true>,  \
+                               out, s2, m2);                                  \
+      default:                                                                \
+        return static_cast<int>(cudaErrorInvalidValue);                       \
+    }                                                                         \
+  } while (0)
+    if (n <= 4) INFO(4);
+    INFO(8);
+#undef INFO
+  }
+#define INFO(N, V)                                                           \
+  do {                                                                       \
+    switch (pass) {                                                          \
+      case 0:                                                                \
+        return cc::kernel_info(cc::sq_pass_kernel<N, DT, V>, out);           \
+      case 1:                                                                \
+        return cc::kernel_info(cc::update_kernel<N, DT, true, false, V>,     \
+                               out);                                         \
+      case 2:                                                                \
+        return cc::kernel_info(cc::dot_pass_kernel<N, DT, false, V>, out);   \
+      case 3:                                                                \
+        return cc::kernel_info(cc::dot_pass_kernel<N, DT, true, V>, out);    \
+      default:                                                               \
+        return static_cast<int>(cudaErrorInvalidValue);                      \
+    }                                                                        \
+  } while (0)
+  CC_DISPATCH_PEERS(n, vec, INFO);
+#undef INFO
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// What the compiler made of a wire pass, for a report, as cc_pass_info:
+// out[0] registers a thread, out[1] local (spill) bytes, out[2] resident
+// CTAs per SM, out[3] dynamic shared memory a CTA. `pass`: 0 the norm
+// pass, 1 the update with norms, 2 the dot pass, 3 the dot pass with
+// norms; n and vec (0, 1, or 2: the staged body, n <= 8) pick the
+// instantiation as a launch would.
+extern "C" int wire_pass_info(int dtype, int pass, int n, int vec, int* out) {
+  WIRE_DISPATCH(pass_info, pass, n, vec, out);
 }

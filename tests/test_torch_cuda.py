@@ -11,7 +11,10 @@ two-phase clip (#4, #12) at each of its bodies (staged or global, up to
 composition up to 8 peers, refusing what it cannot run; every
 kernel above 32 peers (n = 33 and 64, the peer-tiled passes) and at
 partition lengths around a chunk boundary; and one stack gives the same
-bits at every storage offset and row stride. Marked
+bits at every storage offset and row stride. The adaptive loop (#3),
+decided on the card, gives the bits of the loop that read ||dv||^2 on
+the host before every iteration; the wire passes' staged body (#7, #8)
+gives its float32 twins' bits. Marked
 ``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
@@ -19,6 +22,7 @@ machine with
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -449,3 +453,188 @@ def test_same_bits_at_every_storage_offset_and_row_stride_on_card(cuda, n, d):
         got = outputs(_at(g, offset), _at(gb, offset), zz, vv,
                       [(_at(q, offset), sc) for q, sc in wire.values()])
         assert all(torch.equal(a, b) for a, b in zip(ref, got)), offset
+
+
+def _staggered(n, cuda, warm, ragged):
+    """An (n, d) stack of 4 partitions (the last ``ragged`` columns short)
+    whose spreads differ, so the adaptive loop converges them at different
+    iterations (one only at the cap of 12 at tol 1e-3), drawn with numpy;
+    a small warm start when ``warm``."""
+    P, part = 4, 4096 + 16
+    d = P * part - ragged
+    rng = np.random.default_rng(n)
+    g = rng.standard_normal((n, d)).astype(np.float32) / math.sqrt(part)
+    g[-1] *= 10.0
+    for p, s in enumerate((1.0, 0.05, 0.01, 3.0)):
+        g[:, p * part:(p + 1) * part] *= s
+    v0 = (0.01 * rng.standard_normal((P, part)).astype(np.float32)
+          if warm else None)
+    return (torch.from_numpy(g).to(cuda), P,
+            None if v0 is None else torch.from_numpy(v0).to(cuda))
+
+
+def _host_synchronous_adaptive(g, P, tau, tol, max_iters, w, v0):
+    """The adaptive loop as it ran before the decision moved to the card:
+    the same passes on the global body, with the host reading max
+    ||dv||^2 before every iteration and stopping at once, updating a copy
+    of v0 in place."""
+    k = kc._Stack(g, P)
+    k.stage = False
+    ww, v = k.weights(w), k.start(v0)
+    sq_part, d2_part = k.partials(), k.empty(k.P, k.C)
+    sq, cw, wsum = k.empty(k.P, k.n), k.empty(k.P, k.n), k.empty(1)
+    tol2 = float(np.float32(tol) ** 2)
+    d2 = torch.full((k.P,), math.inf, device=g.device)
+    iters = torch.zeros((k.P,), dtype=torch.int32, device=g.device)
+    k.sq_pass(v, sq_part)
+    k.finish_weights(sq_part, ww, tau, sq, cw, wsum)
+    for _ in range(max_iters):
+        if not bool((d2 > tol2).any()):
+            break
+        k.update(v, v, cw, wsum, sq_part=sq_part, d2_part=d2_part, d2=d2,
+                 tol2=tol2)
+        k.finish_weights(sq_part, ww, tau, sq, cw, d2_part=d2_part, d2=d2,
+                         iters=iters, tol2=tol2)
+    return v, iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [0, 3])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("n", [4, 33])
+def test_adaptive_loop_decided_on_card_is_the_host_loop_bitwise(cuda, n,
+                                                                  warm,
+                                                                  ragged):
+    """#3 with partitions that converge at different iterations, some
+    before the cap and one at it, on the staged body (4 peers, aligned
+    rows) and the global one: iters equals the plain version's exactly
+    and the launch count is the cap (one partition steps at every
+    iteration, so every step enqueued moves it); agg is within 1e-5 of
+    plain and,
+    with iters, bit for bit the host-synchronous loop's (whose passes
+    load from global memory)."""
+    g, P, v0 = _staggered(n, cuda, warm, ragged)
+    assert kc._Stack(g, P).stage == (n <= 8 and ragged == 0)
+    w = torch.ones((n,), device=cuda)
+    w[-2] = 0.0
+    tau, tol, cap = 1.0, 1e-3, 12
+    plain_v, plain_it = kc.butterfly_clip_adaptive_plain(g, P, tau, tol, cap,
+                                                         w, v0)
+    its = plain_it.tolist()
+    assert max(its) == cap and min(its) < cap and len(set(its)) > 2
+    before = kc.LAUNCHES["adaptive_clip_step"]
+    v, it = kc.butterfly_clip_adaptive(g, P, tau, tol, cap, w, v0)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["adaptive_clip_step"] - before == cap
+    assert torch.equal(it, plain_it)
+    torch.testing.assert_close(v, plain_v, rtol=1e-5, atol=1e-5)
+    ref_v, ref_it = _host_synchronous_adaptive(g, P, tau, tol, cap, w, v0)
+    assert torch.equal(v, ref_v) and torch.equal(it, ref_it)
+    # a cap the last partitions do not reach: the same bits as the host
+    # loop stopped there
+    v, it = kc.butterfly_clip_adaptive(g, P, tau, tol, 3, w, v0)
+    ref_v, ref_it = _host_synchronous_adaptive(g, P, tau, tol, 3, w, v0)
+    assert torch.equal(v, ref_v) and torch.equal(it, ref_it)
+
+
+def _strided(x, offset, ld):
+    """x's values stored ``offset`` elements into a flat buffer with row
+    stride ``ld`` (>= x's width); the buffer's start is 512-byte
+    aligned."""
+    n, d = x.shape
+    flat = torch.zeros(n * ld + offset + 16, dtype=x.dtype, device=x.device)
+    out = flat[offset:offset + n * ld].view(n, ld)[:, :d]
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [0, 3])
+@pytest.mark.parametrize("n", [4, 8, 16, 33])
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+def test_wire_staged_body_gives_the_float32_twins_bits_on_card(cuda, codec,
+                                                               n, ragged):
+    """#7 and #8 over int8/bf16 payloads stored at offsets 0-3, with the
+    row stride d and one 16-byte aligned above it, with and without a
+    ragged tail: up to 8 peers the aligned stacks run the staged body and
+    the others the global one, and every one gives the bits of the
+    float32 kernels on the dequantized payloads (#1, #5), within 1e-5 of
+    plain."""
+    from repro_torch.core import compression
+
+    part = 2 * kc.CHUNK + 1024 + 16  # a partial last chunk
+    d = n * part - ragged
+    g, z, v, w = _inputs(n, d, cuda)
+    g[1, :part] = 0.0  # an all-zero payload: int8 scale 0
+    q, sc = _wire(g, n, codec)
+    xd = compression.wire_grads(g, codec, n)
+    taus = [1.0, 0.5, math.inf]
+    want_clip = kc.butterfly_clip_fused(xd, n, taus, z, None, w, v)
+    want_mean = kc.mean_digest_fused(xd, n, z, w)
+    wide = -(-d // 16) * 16 + 16
+    for ld in (d, wide):
+        for offset in range(4):
+            qs = _strided(q, offset, ld)
+            staged = (n <= 8 and offset == 0
+                      and ld * qs.element_size() % 16 == 0)
+            assert kc._Stack(qs, n, sc).stage == staged
+            got = kc.butterfly_clip_fused_dequant(qs, sc, n, taus, z, None, w,
+                                                  v)
+            assert all(torch.equal(a, b) for a, b in zip(got, want_clip)), (
+                ld, offset)
+            got = kc.mean_digest_fused_dequant(qs, sc, n, z, w)
+            assert all(torch.equal(a, b) for a, b in zip(got, want_mean)), (
+                ld, offset)
+            if offset == 0 and ld == wide:
+                _check(lambda: kc.butterfly_clip_fused_dequant(
+                           qs, sc, n, taus, z, None, w, v),
+                       lambda: kc.butterfly_clip_fused_dequant_plain(
+                           qs, sc, n, taus, z, None, w, v),
+                       "butterfly_clip_fused_dequant")
+
+
+@pytest.mark.cuda
+def test_adaptive_loop_stops_early_on_card(cuda):
+    """On a small stack, where a step takes the card less time than the
+    host takes to enqueue one, the finish's readings of d2 reach the host
+    through the pinned slots in time: the loop stops enqueuing within a
+    few iterations of the last partition's convergence, far below the
+    cap, with the host loop's bits; each step enqueued is one launch
+    counted."""
+    g, P, v0 = _staggered(4, cuda, True, 0)
+    w = torch.ones((4,), device=cuda)
+    pushes = []
+
+    class Ring(kc._D2Ring):
+        def push(self, j):
+            pushes.append(j)
+            super().push(j)
+
+    cap = 400
+    before = kc.LAUNCHES["adaptive_clip_step"]
+    v, it = kc._adaptive_clip(kc._Stack(g, P), 1.0, 1e-3, cap, w, v0,
+                              ring=Ring)
+    assert kc.LAUNCHES["adaptive_clip_step"] - before == len(pushes)
+    ref_v, ref_it = _host_synchronous_adaptive(g, P, 1.0, 1e-3, cap, w, v0)
+    assert torch.equal(v, ref_v) and torch.equal(it, ref_it)
+    last = int(it.max())
+    assert last < cap
+    assert last <= len(pushes) <= last + kc.ADAPTIVE_RING
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [math.inf, 2e19])
+def test_adaptive_loop_at_unbounded_tol_on_card(cuda, tol):
+    """A tolerance whose float32 square is +inf freezes every partition
+    before its first step: the warm start comes back, as from the plain
+    version, with iters 0 and no launch."""
+    g, P, v0 = _staggered(4, cuda, True, 0)
+    before = kc.LAUNCHES["adaptive_clip_step"]
+    with np.errstate(over="ignore"):
+        v, it = kc.butterfly_clip_adaptive(g, P, 1.0, tol, 12, None, v0)
+        want_v, want_it = kc.butterfly_clip_adaptive_plain(g, P, 1.0, tol,
+                                                           12, None, v0)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["adaptive_clip_step"] == before
+    assert torch.equal(v, want_v) and torch.equal(it, want_it)
+    assert it.tolist() == [0] * P
