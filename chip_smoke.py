@@ -7,15 +7,18 @@ Phases, each printing its own line:
   1. the card (name and power limit from nvidia-smi) and the build of the
      CUDA kernels from ``src/repro_torch/kernels/csrc``, with its time;
      the float32 passes' registers, local (spill) bytes and resident CTAs
-     per SM, and those of the two-phase clip's passes (#4, #12) with their
-     dynamic shared memory at n = 4, 8 and 16, each body;
+     per SM with their dynamic shared memory (verified:mean's one pass
+     among them, staged at n = 4 and 8, global at 16 and 32), those of the
+     two-phase clip's passes (#4, #12) at n = 4, 8 and 16, each body, and
+     those of the wire passes (#7, #8);
   2. every kernel against its plain PyTorch version on the card, at the
      slice's shapes (4 peers x 4 partitions of full-width ALBERT-large), two
      ragged small shapes and two past 32 peers (33 and 64 peers, d = 2^20
      + 3: the peer-tiled passes), tau in {1, inf}, with zero weights; the
      digest kernels and the int8/bf16 wire kernels also with an all-zero
      payload (scale 0), and the single-partition launch kernels #10 and
-     #11 at the launch owner's (4, d/4) stack: within rtol = atol = 1e-5
+     #11 at the launch owner's (4, d/4) stack (#3, #5 and #7 there too, as
+     launch paths (j)-(l) call them): within rtol = atol = 1e-5
      per element and 1e-5 of
      each output's largest value, bitwise equal over two runs, timed with
      CUDA events; the wire kernels give the bits of their float32 twins on
@@ -31,7 +34,9 @@ Phases, each printing its own line:
      fused clip's passes one by one, #1 at the (4, d) stack and #10 at
      the (4, d/4) owner stack, each pass and each finish timed on its own
      with CUDA events, then the two-phase clip's, #4 at the (4, d) stack
-     and #12 at the (16, d) stack, each on both bodies, and the yardstick;
+     and #12 at the (16, d) stack, and verified:mean's pass and finish,
+     #5 and #8 (int8, bf16) at the (4, d) stack, each on both bodies, and
+     the yardstick;
   3. the main path: ``repro_torch.launch.train_byzantine`` on full-width
      ALBERT-large (bf16 storage, d = 78,223,360), 4 peers, one sign-flip
      attacker, 2 validators, 5 clip iterations, seq 128, batch 4, 6 steps;
@@ -314,7 +319,7 @@ def digest_and_wire_cases(grads, n_parts, tau, weights, gen):
         ("mean_digest_fused", None,
          lambda: kc.mean_digest_fused(grads, n_parts, z, weights),
          lambda: kc.mean_digest_fused_plain(grads, n_parts, z, weights),
-         (nd + 2 * pd) * 4 + tbl, nd * 7, (2 * nd + 3 * pd) * 4 + tbl, None),
+         (nd + 2 * pd) * 4 + tbl, nd * 7, (nd + 2 * pd) * 4 + tbl, None),
         ("digest_tables_batched", None,
          lambda: kc.digest_tables_batched(grads, n_parts, agg, z),
          lambda: kc.digest_tables_batched_plain(grads, n_parts, agg, z),
@@ -340,8 +345,7 @@ def digest_and_wire_cases(grads, n_parts, tau, weights, gen):
                  q, sc, n_parts, z, weights),
              lambda q=q, sc=sc: kc.mean_digest_fused_dequant_plain(
                  q, sc, n_parts, z, weights),
-             wire + 2 * pd * 4 + tbl, nd * 9,
-             2 * wire + 3 * pd * 4 + tbl,
+             wire + 2 * pd * 4 + tbl, nd * 9, wire + 2 * pd * 4 + tbl,
              lambda xd=xd: kc.mean_digest_fused(xd, n_parts, z, weights)),
         ]
     return cases
@@ -512,11 +516,12 @@ def fold_side(stats, name, suffix):
 
 
 def owner_cases(stats, gen, dev):
-    """#3 and #7 at a launch owner's (4, d/4) stack, as launch paths (j)
-    and (l) call them: #3 with a warm start, tau 1, tol 1e-4 and the cap of
-    20 iterations; #7 over the int8 payloads at one partition, cold, 5
-    iterations. Held against plain (#7 also bit for bit against #1 on the
-    dequantized payloads) and timed, under ``at_owner_stack``."""
+    """#3, #5 and #7 at a launch owner's (4, d/4) stack, as launch paths
+    (j), (k) and (l) call them: #3 with a warm start, tau 1, tol 1e-4 and
+    the cap of 20 iterations; #5 at one partition, unit weights; #7 over
+    the int8 payloads at one partition, cold, 5 iterations. Held against
+    plain (#7 also bit for bit against #1 on the dequantized payloads) and
+    timed, under ``at_owner_stack``."""
     from repro_torch.core import compression
     from repro_torch.kernels import centered_clip as kc
 
@@ -535,6 +540,13 @@ def owner_cases(stats, gen, dev):
          (nd + 2 * pd) * 4, lambda out: adaptive_ops(nd, n, part, out[1]),
          lambda out: adaptive_moved(nd, pd, n, part, out[1]), True)
     fold_side(stats, "adaptive_clip_step", "@owner")
+    tbl = 2 * n * 4
+    hold(stats, "mean_digest_fused@owner",
+         f"mean_digest_fused owner stack n={n} part={part}",
+         lambda: kc.mean_digest_fused(xs, 1, z),
+         lambda: kc.mean_digest_fused_plain(xs, 1, z),
+         (nd + 2 * pd) * 4 + tbl, nd * 7, (nd + 2 * pd) * 4 + tbl, True)
+    fold_side(stats, "mean_digest_fused", "@owner")
     q, sc = compression.quantize_grads(xs, "int8", 1)
     xd = compression.wire_grads(xs, "int8", 1)
     taus = [1.0] * CLIP_ITERS
@@ -640,8 +652,8 @@ def phase_kernels(dev):
           "iterations equal plain's exactly "
           f"({len(shapes)} shapes {[s[:2] for s in shapes]} x tau {{1, inf}} "
           "(#9 also 0) x weights x codecs {int8, bf16}; #12 over f32 and "
-          "bf16 stacks; #4 also at (16, d) with 16 partitions; #3 and #7 "
-          "also at a launch owner's (4, d/4) stack)", flush=True)
+          "bf16 stacks; #4 also at (16, d) with 16 partitions; #3, #5 and "
+          "#7 also at a launch owner's (4, d/4) stack)", flush=True)
     kc.reset_launch_counts()
     return stats
 
@@ -651,35 +663,36 @@ def phase_kernels(dev):
 # ---------------------------------------------------------------------------
 # cc_pass_info's codes (csrc/centered_clip.cu)
 PASS_INFO = ((0, "sq pass"), (1, "update with norms"), (2, "dot pass"),
-             (3, "dot pass with norms"), (4, "mean pass"),
+             (3, "dot pass with norms"), (4, "verified:mean pass"),
              (5, "finish weights"), (6, "finish tables"),
              (8, "update with norms and dv"))
 # (n, vec) of the float32 passes' report: the staged body (vec 2) at 4 and
-# 8 peers, the 16-byte loads' body (vec 1: the mean pass) and the
-# column-by-column body at 4, groups of one column at 16
-FLOAT32_BODIES = ((4, 2), (4, 1), (4, 0), (8, 2), (16, 0))
+# 8 peers, the 16-byte loads' body (vec 1) and the column-by-column body
+# at 4, groups of one column at 16 and 32
+FLOAT32_BODIES = ((4, 2), (4, 1), (4, 0), (8, 2), (16, 0), (32, 0))
 # the two-phase clip's passes (#4, #12)
 TWO_PHASE_INFO = ((9, "prologue"), (7, "update with next norms"),
                   (10, "last update"))
 # (n, vec) of the two-phase passes' report: the staged body (vec) and the
 # global body at 4 and 16 peers, the staged body at 8
 TWO_PHASE_BODIES = ((4, 1), (4, 0), (8, 1), (16, 1), (16, 0))
-# wire_pass_info's codes (csrc/wire.cu): the passes of #7 and #8's dot pass
+# wire_pass_info's codes (csrc/wire.cu): the passes of #7 and #8's pass
 WIRE_PASS_INFO = ((0, "sq pass"), (1, "update with norms"), (2, "dot pass"),
-                  (3, "dot pass with norms"))
+                  (3, "dot pass with norms"), (4, "verified:mean pass"))
 # (n, vec) of the wire passes' report: the staged body (vec 2) at 4 and 8
-# peers, the 16-byte loads' global body (vec 1) at 4
-WIRE_BODIES = ((4, 2), (4, 1), (8, 2))
+# peers, the 16-byte loads' global body (vec 1) at 4, groups of one column
+# at 16 and 32
+WIRE_BODIES = ((4, 2), (4, 1), (8, 2), (16, 0), (32, 0))
 
 
 def print_pass_info():
     """Registers, local (spill) bytes, resident CTAs per SM and dynamic
     shared memory of the float32 passes, as the build made them, at each
     (n, vec) of ``FLOAT32_BODIES`` (the main path's instantiations are the
-    staged ones at n = 4; #3's step is the update with norms and dv); then
-    the two-phase clip's passes at each (n, body) of ``TWO_PHASE_BODIES``;
-    then the wire passes (#7, #8's dot pass) at int8 and bf16 at each (n,
-    vec) of ``WIRE_BODIES``."""
+    staged ones at n = 4; #3's step is the update with norms and dv, #5's
+    the verified:mean pass); then the two-phase clip's passes at each (n,
+    body) of ``TWO_PHASE_BODIES``; then the wire passes (#7, #8) at int8
+    and bf16 at each (n, vec) of ``WIRE_BODIES``."""
     import ctypes
 
     from repro_torch.kernels import build
@@ -691,8 +704,6 @@ def print_pass_info():
         for code, what in PASS_INFO:
             if code in (5, 6) and (n, vec) != (4, 2):
                 continue  # the finishes depend on neither n nor the body
-            if code == 4 and vec == 2:
-                continue  # the mean pass alone has no staged body
             check(lib.cc_pass_info(code, n, vec, out) == 0,
                   f"pass info of {what} at n={n} vec={vec}")
             parts.append(f"{what} {out[0]} regs, {out[1]} local bytes, "
@@ -793,11 +804,11 @@ def pass_breakdown(dev):
     """#10 at one launch owner's (4, d/4) stack; #3 at the (4, d) stack
     (cap 5) and at the owner stack (cap 20), the whole call against the
     sum of its passes; then on both bodies, aligned (the staged body) and
-    off 16 bytes (the global body): #1 and #4 at the (4, d) stack (4
+    off 16 bytes (the global body): #1, #4 and #5 at the (4, d) stack (4
     partitions) and #12 at Fig. 9's (16, d) stack, one element off (a row
-    stride of d + 1: column by column), #7 over the int8 and bf16 payloads
-    of the (4, d) stack, 4 elements off with a row stride of d + 4 (the
-    4-element loads), and #7 and #3 at 8 peers over (8, d/2); 5
+    stride of d + 1: column by column), #7 and #8 over the int8 and bf16
+    payloads of the (4, d) stack, 4 elements off with a row stride of d +
+    4 (the 4-element loads), and #7 and #3 at 8 peers over (8, d/2); 5
     iterations at tau 1 with a warm start, through the public wrappers
     with the libraries behind a timing stand-in: every pass and every
     finish timed on its own with CUDA events around its launch, median
@@ -868,7 +879,8 @@ def pass_breakdown(dev):
         nd, pd = xs.numel() * xs.element_size(), n_parts * geo.part * 4
         # a two-phase clip pass's rate is that of its median pass, an update
         moved = {"sq_pass": nd + pd, "update": nd + 2 * pd,
-                 "dot_pass": nd + 2 * pd, "clip_pass": nd + 2 * pd}
+                 "dot_pass": nd + 2 * pd, "clip_pass": nd + 2 * pd,
+                 "mean_dot_pass": nd + 2 * pd}
 
         def show(what):
             t = [m for w, m in zip(whats, ms) if w == what]
@@ -905,15 +917,22 @@ def pass_breakdown(dev):
              off16),
             ("centered_clip", "#12", g16, 1,
              lambda xs: kc.centered_clip(xs, taus, None, v16),
-             lambda: kc.centered_clip_plain(g16, taus, None, v16), off16)]
+             lambda: kc.centered_clip_plain(g16, taus, None, v16), off16),
+            ("mean_digest_fused", "#5", grads, P,
+             lambda xs: kc.mean_digest_fused(xs, P, z),
+             lambda: kc.mean_digest_fused_plain(grads, P, z), off16)]
         for codec in ("int8", "bf16"):
             q, sc = compression.quantize_grads(grads, codec, P)
-            bodies.append((
+            bodies += [(
                 "butterfly_clip_fused_dequant", f"#7 {codec}", q, P,
                 lambda xs, sc=sc: kc.butterfly_clip_fused_dequant(
                     xs, sc, P, taus, z, None, None, v0),
                 lambda q=q, sc=sc: kc.butterfly_clip_fused_dequant_plain(
-                    q, sc, P, taus, z, None, None, v0), off_stage))
+                    q, sc, P, taus, z, None, None, v0), off_stage), (
+                "mean_digest_fused_dequant", f"#8 {codec}", q, P,
+                lambda xs, sc=sc: kc.mean_digest_fused_dequant(xs, sc, P, z),
+                lambda q=q, sc=sc: kc.mean_digest_fused_dequant_plain(
+                    q, sc, P, z), off_stage)]
         # 8 peers over 8 partitions of (8, d/2), the bytes of (4, d): the
         # staged body at its largest peer count
         g8 = stack(8, D_FULL // 2, gen, dev)
@@ -1318,8 +1337,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--breakdown", action="store_true",
                     help="only build, print the passes' resources and run "
-                    "the per-pass breakdown of #1, #3, #4, #7, #10 and #12 "
-                    "and the yardstick")
+                    "the per-pass breakdown of #1, #3, #4, #5, #7, #8, #10 "
+                    "and #12 and the yardstick")
     args = ap.parse_args()
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -40,7 +40,7 @@ SIGNATURES = {
         "cc_clip_pass": _STACK + _GRID + (_P,) * 6,
         "cc_dot_pass": _STACK + _GRID + (_P,) * 5,
         "cc_rows_dot_pass": _STACK + _GRID + (_P, _I) + (_P,) * 5,
-        "cc_mean_pass": _STACK + _GRID + (_P, _P, _P),
+        "cc_mean_dot_pass": _STACK + _GRID + (_P,) * 6,
         "cc_finish_weights": (_P, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P,
                               _F, _P, _P),
         "cc_finish_tables": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
@@ -55,7 +55,7 @@ SIGNATURES = {
         + (_F, _P, _P),
         "wire_clip_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 6,
         "wire_dot_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 5,
-        "wire_mean_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P, _P, _P),
+        "wire_mean_dot_pass": (_I, _P, _P) + _STACK[1:] + _GRID + (_P,) * 6,
         "wire_pass_info": (_I, _I, _I, _I, _P),
     },
 }

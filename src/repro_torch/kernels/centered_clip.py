@@ -50,9 +50,10 @@ where every row start of the stack and of the float32 vectors is aligned,
 and column by column, in the same order, where not: the same stack gives
 the same bits at any storage offset or row stride. Up to 32 peers the
 two-phase clip copies its rows into shared memory first where every row
-start is 16-byte aligned; so do every norm, update and dot pass up to 8
-peers. The fixed budgets (#1, #4, #7, #10, #12) and the adaptive loop (#3)
-read v0 in place and have their first update write v.
+start is 16-byte aligned; so do every norm, update and dot pass and
+verified:mean's one pass (#5, #8) up to 8 peers. The fixed budgets (#1,
+#4, #7, #10, #12) and the adaptive loop (#3) read v0 in place and have
+their first update write v.
 
 ``LAUNCHES`` counts kernel launches on the card: one per wrapper call, and
 for the adaptive loop one per step it enqueues (its step kernel: every
@@ -316,8 +317,8 @@ class _Stack:
         # the two-phase clip up to TILE peers copies whole 16-byte units of
         # its rows into shared memory: every row start on 16 bytes
         self.clip_vec = self.n <= TILE and rows_aligned(16)
-        # so does the staged body of every norm, update and dot pass, with
-        # groups of 4 (up to 8 peers); the mean pass has no staged body
+        # so does the staged body of every norm, update and dot pass and of
+        # verified:mean's pass, with groups of 4 (up to 8 peers)
         self.stage = group == GROUP and rows_aligned(16)
         self.lib = build.load("centered_clip")
         self.stream = _stream(self.device)
@@ -333,7 +334,8 @@ class _Stack:
 
     @property
     def body(self):
-        """The ``vec`` of the norm, update and dot passes."""
+        """The ``vec`` of the norm, update and dot passes and of
+        verified:mean's pass."""
         return STAGED if self.stage else int(self.vec)
 
     def _call(self, what, fn, *args):
@@ -418,8 +420,13 @@ class _Stack:
                    _ptr(v), _ptr(z), _ptr(dot_part), _ptr(sq_part),
                    vec=self.body)
 
-    def mean_pass(self, w, v):
-        self._pass("mean_pass", (v,), _ptr(w), _ptr(v))
+    def mean_dot_pass(self, w, v, z, dot_part, sq_part):
+        """verified:mean's one read of the stack: writes v = sum_i w_i x_i /
+        max(sum_i w_i, 1e-30) and the partials of <x_i - v, z> and
+        ||x_i - v||^2 against it, the bits of a mean pass followed by
+        ``dot_pass`` with norms."""
+        self._pass("mean_dot_pass", (v, z), _ptr(w), _ptr(v), _ptr(z),
+                   _ptr(dot_part), _ptr(sq_part), vec=self.body)
 
     def finish_weights(self, sq_part, w, tau, sq, cw, wsum=None,
                        d2_part=None, d2=None, iters=None, tol2=0.0,
@@ -782,22 +789,23 @@ def digest_tables_batched(grads, n_parts, agg, z):
 
 
 def _mean_digest(k, z, weights):
-    """The two passes of verified:mean over a validated stack ``k``: the
-    weighted mean, then the digests against it. Returns (v, s, norms)."""
+    """verified:mean over a validated stack ``k`` in one read of it: the
+    pass that writes the weighted mean and the digests' partials against
+    it, then their finish. Returns (v, s, norms)."""
     w = k.weights(weights)
     z = k.f32(z, (k.P, k.part), "z")
     v = k.empty(k.P, k.part)
     dot_part, sq_part = k.partials(), k.partials()
     s, norms = k.empty(k.P, k.n), k.empty(k.P, k.n)
-    k.mean_pass(w, v)
-    k.dot_pass(v, z, dot_part, sq_part=sq_part)
+    k.mean_dot_pass(w, v, z, dot_part, sq_part)
     k.finish_digests(dot_part, sq_part, s, norms)
     return v, s, norms
 
 
 def mean_digest_fused(grads, n_parts, z, weights=None):
-    """verified:mean in two passes of the stack: v = sum_i w_i x_i /
-    max(sum_i w_i, 1e-30) per partition, then the digests against v.
+    """verified:mean in one read of the stack: v = sum_i w_i x_i /
+    max(sum_i w_i, 1e-30) per partition and the digests against v (two
+    reads above 32 peers).
     z: (n_parts, part); weights: (n,). Returns (agg (n_parts, part),
     s (n_parts, n), norms (n_parts, n))."""
     if not _on_cuda(grads):

@@ -16,8 +16,9 @@
 //       weights, update);
 //   * digest_tables_batched_pallas  (verified:* digests, no tau):
 //       dot pass with norms, finish digests;
-//   * mean_digest_fused_pallas      (verified:mean, 2 passes):
-//       mean pass, dot pass with norms, finish digests;
+//   * mean_digest_fused_pallas      (verified:mean): one read of the
+//       stack, the pass that writes the mean and sums the digests'
+//       partials against it, then finish digests;
 //   * digest_tables_rows_pallas     (sampled-digest audits: the k sampled
 //       partitions only): the rows dot pass with norms, then finish
 //       tables (tau > 0, clip weight) or finish digests (tau = 0), over k
@@ -37,8 +38,8 @@
 // that one partition. Like the batched passes they are
 // bound by bytes (a few float32 operations per element read): the design
 // reads the stack once per pass, n_iters + 2 passes for the fused clip,
-// one for the tables and n_iters + 1 for the two-phase clip (2 n_iters
-// above 32 peers).
+// one for the tables and for verified:mean (two above 32 peers), and
+// n_iters + 1 for the two-phase clip (2 n_iters above 32 peers).
 // The wire-payload twins of butterfly_clip_fused_pallas and
 // mean_digest_fused_pallas are wire.cu.
 
@@ -56,9 +57,10 @@ using cc::kThreads;
 // (the 16-byte loads), 0 otherwise (the same sums, loaded column by
 // column). Any peer count n >= 1: above 32 the passes walk the peers in
 // tiles. A null v in a pass that reads v reads zeros. `vec` 2
-// (cc::kStaged; the norm, update and dot passes up to 8 peers): the staged
-// body, every row start of the stack and the vectors 16-byte aligned; an
-// ask it cannot run is refused, never run another way.
+// (cc::kStaged; the norm, update and dot passes and verified:mean's pass,
+// up to 8 peers): the staged body, every row start of the stack and the
+// vectors 16-byte aligned; an ask it cannot run is refused, never run
+// another way.
 // ---------------------------------------------------------------------------
 extern "C" int cc_sq_pass(const float* x, long long ld, long long part,
                           long long d, int n, int P, long long cs, int C,
@@ -216,19 +218,18 @@ extern "C" int cc_rows_dot_pass(const float* x, long long ld, long long part,
                   sq_part, stream);
 }
 
-extern "C" int cc_mean_pass(const float* x, long long ld, long long part,
-                            long long d, int n, int P, long long cs, int C,
-                            int vec, const float* w, float* v,
-                            void* stream) {
-  const auto s = cc::make_stack<0>(x, nullptr, ld, part, d, n);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long chunks = static_cast<long long>(P) * C;
-#define LAUNCH(N, V)                                                       \
-  cc::launch_pass(cc::mean_pass_kernel<N, 0, V>, chunks, st, s, w, cs, C, \
-                  P, v)
-  CC_DISPATCH_PEERS(n, vec, LAUNCH);
-#undef LAUNCH
-  return cc::launch_status();
+// verified:mean's one pass (#5; centered_clip.cuh, "verified:mean"): v =
+// sum_i w_i x_i / max(sum_i w_i, 1e-30) into v, and the partials of <x_i
+// - v, z> and ||x_i - v||^2 against it into dot_part and sq_part, the bits
+// of a mean pass followed by cc_dot_pass with norms.
+extern "C" int cc_mean_dot_pass(const float* x, long long ld, long long part,
+                                long long d, int n, int P, long long cs,
+                                int C, int vec, const float* w, float* v,
+                                const float* z, float* dot_part,
+                                float* sq_part, void* stream) {
+  return cc::mean_dot_pass(cc::make_stack<0>(x, nullptr, ld, part, d, n), P,
+                           cs, C, vec, w, v, z, dot_part, sq_part,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The finishing kernels: a CTA per row of the (rows, n, C) partials and
@@ -269,15 +270,17 @@ extern "C" int cc_finish_digests(const float* dot_part, const float* sq_part,
 // What the compiler made of a float32 pass, for a report: out[0] registers
 // a thread, out[1] local (spill) bytes a thread, out[2] resident CTAs per
 // SM, out[3] dynamic shared memory a CTA. `pass`: 0 the norm pass, 1 the
-// update with norms, 2 the dot pass, 3 the dot pass with norms, 4 the mean
-// pass, 5 finish weights, 6 finish tables, 8 the update with norms and
+// update with norms, 2 the dot pass, 3 the dot pass with norms, 4
+// verified:mean's pass (the mean with the digests' partials), 5 finish
+// weights, 6 finish tables, 8 the update with norms and
 // ||dv||^2 (the adaptive step); the two-phase clip's passes 7 (an update
 // with the next norms), 9 (the prologue's norms) and 10 (the last update)
 // up to 32 peers, with their dynamic shared memory. n and vec (0, 1, or 2:
-// the staged body of passes 0-3 and 8, n <= 8, with its dynamic shared
+// the staged body of passes 0-4 and 8, n <= 8, with its dynamic shared
 // memory) pick the instantiation as a launch would.
 extern "C" int cc_pass_info(int pass, int n, int vec, int* out) {
   out[3] = 0;
+  if (pass == 4) return cc::mean_dot_pass_info<0>(n, vec, out);
   if (pass == 5) return cc::kernel_info(cc::finish_weights_kernel, out);
   if (pass == 6) return cc::kernel_info(cc::finish_tables_kernel<true>, out);
   if (pass == 7) return cc::clip_pass_info<0>(1, n, vec, out);
@@ -325,8 +328,6 @@ extern "C" int cc_pass_info(int pass, int n, int vec, int* out) {
         return cc::kernel_info(cc::dot_pass_kernel<N, 0, false, V>, out);   \
       case 3:                                                               \
         return cc::kernel_info(cc::dot_pass_kernel<N, 0, true, V>, out);    \
-      case 4:                                                               \
-        return cc::kernel_info(cc::mean_pass_kernel<N, 0, V>, out);         \
       case 8:                                                               \
         return cc::kernel_info(cc::update_kernel<N, 0, true, true, V>,      \
                                out);                                        \

@@ -37,8 +37,9 @@
 //     is aligned (VEC), and otherwise the same 4 columns loaded one by one
 //     in the same order: one stack gives the same bits at any storage
 //     offset or row stride; where every row start is 16-byte aligned, the
-//     two-phase clip and the norm, update and dot passes first copy their
-//     rows into shared memory ("The staged body ..."), summed in the same order;
+//     two-phase clip, the norm, update and dot passes and verified:mean's
+//     pass first copy their rows into shared memory ("The staged body
+//     ..."), summed in the same order;
 //   * a finishing kernel, one CTA per (partition, peer), sums the peer's C
 //     partials in a fixed tree (thread t takes partials t, t + 256, ... in
 //     turn, then the CTA's shuffle tree) and turns them into clip weights,
@@ -416,9 +417,10 @@ __device__ __forceinline__ void tile_x(const typename Elem<DT>::T* p,
 
 // ---------------------------------------------------------------------------
 // The staged body of the norm, update and dot passes over float32, int8
-// and bf16 stacks, up to 8 peers where every row start is 16-byte aligned;
-// and of the two-phase clip's passes up to 32 peers (#4, #12, "The
-// two-phase clip" below).
+// and bf16 stacks, up to 8 peers where every row start is 16-byte aligned
+// (and of verified:mean's pass, "verified:mean" below); and of the
+// two-phase clip's passes up to 32 peers (#4, #12, "The two-phase clip"
+// below).
 //
 // A group of 4 columns is 4 bytes of int8 (8 of bf16) a peer, so a thread
 // of the global body keeps a quarter (a half) of its float32 twin's bytes
@@ -1033,26 +1035,84 @@ dot_pass_kernel(Stack<DT> s, const float* v, const float* __restrict__ z,
   }
 }
 
-// Pass: the weighted per-partition mean, v[p, k] = sum_i w_i x_i[k] /
-// max(sum_i w_i, 1e-30), peers summed in index order. Coordinatewise, so
-// each chunk writes its own slice of v and nothing crosses CTAs. Above 32
-// peers the weights and scales are read from cache instead of registers.
-template <int MAXN, int DT, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-mean_pass_kernel(Stack<DT> s, const float* __restrict__ w, long long cs,
-                 int C, int rows, float* __restrict__ v) {
+// ---------------------------------------------------------------------------
+// verified:mean (#5, #8): the weighted mean and its digests in one read of
+// the stack. Replaces the passes of mean_digest_fused_pallas and
+// mean_digest_fused_dequant_pallas (_md_kernel and _md_dequant_kernel,
+// src/repro/kernels/centered_clip.py).
+//
+// The JAX kernel reads x twice because its grid runs in order: phase 0
+// writes the mean, phase 1 reads x again against it. The mean of a column
+// needs only that column's n values, so here the thread that holds a
+// group's columns of all n peers forms v there, stores it, and sums <x_i -
+// v, z> and ||x_i - v||^2 from the same values. Bound: bytes. The pass
+// moves S + 2V (the stack and z read, v written), which is the bound,
+// against 2S + 3V for a mean pass and a dot pass.
+//
+// The bits are those of those two passes, so a validator's recompute
+// (#6, and #9 at the sampled rows, against this v) gives them back:
+//   * v[k] = (sum_i w_i x_i[k]) / max(sum_i w_i, 1e-30), the sum by
+//     __fmaf_rn over the peers in index order, then __fdiv_rn, the
+//     weights' sum in index order: every column on its own, so the group
+//     a column falls in changes nothing;
+//   * the dots in dot_pass_kernel's group order, with its _rn intrinsics
+//     and its block_sums tree, against that same v.
+// Bodies: the staged body up to 8 peers where every row start is 16-byte
+// aligned (the rows and z staged, z in the stage's one vector slot, Src::v;
+// v is written, not read); else the global body. Up to 8 peers (groups of
+// 4 columns) a thread loads and dequantizes its group's n x 4 values once
+// and keeps them, and the weights, in registers for the dots; at 9-32
+// peers (groups of one column) it reads them again for the dots (mostly
+// from L1) and the weights from cache, so no thread holds n values beside
+// dot_pass_kernel's dacc, sacc and sc. v is written through (store_wt):
+// on an H100 (PERF.md, chip_smoke.py --breakdown) the staged pass at 4
+// peers with plain stores of v moved 2.0 TB/s over int8 stacks and 2.3
+// over bf16 (3.0 over float32, where v is a sixth of the bytes, not a
+// third or a quarter); written through, 2.7 and 2.8. The register budget
+// keeps 4 CTAs an SM at 4 peers, as the update's.
+// Above 32 peers each chunk is walked twice: the mean over all peers in
+// index order, writing the chunk's v, then reduce_tiled against that v;
+// each thread reads back only the columns it wrote, so nothing crosses
+// threads.
+// ---------------------------------------------------------------------------
+// v's columns of a group, written through (st.global.wt), VEC as store_f.
+template <int G, bool VEC>
+__device__ __forceinline__ void store_wt(float* row, long long k, Group g,
+                                         const float (&o)[G]) {
+  if constexpr (VEC) {
+    __stwt(reinterpret_cast<float4*>(row + k),
+           make_float4(o[0], o[1], o[2], o[3]));
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+    if (e < g.nv) __stwt(row + k + e, o[e]);
+  }
+}
+
+template <int MAXN, int DT, bool VEC, bool STAGED = false>
+__global__ void __launch_bounds__(kThreads, MAXN <= 4 ? 4 : 1)
+mean_dot_pass_kernel(Stack<DT> s, const float* __restrict__ w, float* v,
+                     const float* __restrict__ z, long long cs, int C,
+                     int rows, float* __restrict__ dot_part,
+                     float* __restrict__ sq_part) {
   constexpr int G = group_cols<MAXN>();
+  constexpr bool HOLD = G == 4;  // the group's values kept in registers
+  Walk<DT, STAGED, 1> walk(s.n);
   float wt = 0.f;
   for (int i = 0; i < s.n; ++i) wt += w[i];
   const float ws = fmaxf(wt, 1e-30f);
-  float wr[MAXN];
+  float wr[HOLD ? MAXN : 1];
 #pragma unroll
-  for (int i = 0; i < MAXN; ++i) wr[i] = i < s.n ? w[i] : 0.f;
+  for (int i = 0; i < (HOLD ? MAXN : 1); ++i) wr[i] = i < s.n ? w[i] : 0.f;
   const long long chunks = static_cast<long long>(rows) * C;
   for (long long q = blockIdx.x; q < chunks; q += gridDim.x) {
     const Chunk ch = chunk_at(q, C, cs, s.part);
     const long long p = ch.r;
     float* vp = v + p * s.part;
+    const float* zp = z + p * s.part;
+    float* dout = dot_part + p * s.n * C + ch.c;
+    float* sout = sq_part + p * s.n * C + ch.c;
     if (MAXN == kTile && s.n > MAXN) {
       for (long long k = ch.k0 + threadIdx.x; k < ch.k1; k += kThreads) {
         float num = 0.f;
@@ -1061,30 +1121,55 @@ mean_pass_kernel(Stack<DT> s, const float* __restrict__ w, long long cs,
                           load_x1(s, i, p, k, peer_scale(s, i, p)), num);
         vp[k] = __fdiv_rn(num, ws);
       }
+      reduce_tiled<MAXN, DT, true, true>(s, p, ch.k0, ch.k1, C, vp, zp, dout,
+                                         sout);
       continue;
     }
-    float sc[MAXN];
+    float dacc[MAXN], sacc[MAXN], sc[MAXN];
 #pragma unroll
-    for (int i = 0; i < MAXN; ++i) sc[i] = peer_scale(s, i, p);
-    for (long long k = ch.k0 + threadIdx.x * G; k < ch.k1;
-         k += kThreads * G) {
+    for (int i = 0; i < MAXN; ++i) {
+      dacc[i] = sacc[i] = 0.f;
+      sc[i] = peer_scale(s, i, p);
+    }
+    walk.template run<G>(s, ch, p, zp, nullptr, [&](long long k,
+                                                    const Src<DT>& src) {
       const Group g = group_at<G, VEC>(s, p, k, ch.k1);
-      float num[G];
+      float vg[G], zg[G], xh[HOLD ? MAXN : 1][G];
+      src_load_f<G, VEC>(src.v, zp, k, g, zg);
 #pragma unroll
-      for (int e = 0; e < G; ++e) num[e] = 0.f;
+      for (int e = 0; e < G; ++e) vg[e] = 0.f;
 #pragma unroll
       for (int i = 0; i < MAXN; ++i) {
         if (i < s.n) {
-          float xg[G];
-          load_x<G, VEC>(s, i, p, k, g, sc[i], xg);
+          const float wi = HOLD ? wr[HOLD ? i : 0] : __ldg(w + i);
+          float(&xg)[G] = xh[HOLD ? i : 0];
+          src_load_x<G, VEC>(s, src, i, p, k, g, sc[i], xg);
 #pragma unroll
-          for (int e = 0; e < G; ++e) num[e] = __fmaf_rn(wr[i], xg[e], num[e]);
+          for (int e = 0; e < G; ++e) vg[e] = __fmaf_rn(wi, xg[e], vg[e]);
         }
       }
 #pragma unroll
-      for (int e = 0; e < G; ++e) num[e] = __fdiv_rn(num[e], ws);
-      store_f<G, VEC>(vp, k, g, num);
-    }
+      for (int e = 0; e < G; ++e) vg[e] = __fdiv_rn(vg[e], ws);
+      store_wt<G, VEC>(vp, k, g, vg);
+#pragma unroll
+      for (int i = 0; i < MAXN; ++i) {
+        if (i < s.n) {
+          float(&xg)[G] = xh[HOLD ? i : 0];
+          if constexpr (!HOLD)
+            src_load_x<G, VEC>(s, src, i, p, k, g, sc[i], xg);
+#pragma unroll
+          for (int e = 0; e < G; ++e) {
+            if (e < g.nv) {
+              const float df = __fsub_rn(xg[e], vg[e]);
+              dacc[i] = __fmaf_rn(df, zg[e], dacc[i]);
+              sacc[i] = __fmaf_rn(df, df, sacc[i]);
+            }
+          }
+        }
+      }
+    });
+    block_sums<MAXN>(dacc, s.n, dout, C);
+    block_sums<MAXN>(sacc, s.n, sout, C);
   }
 }
 
@@ -1290,7 +1375,7 @@ inline bool aligned16(const void* p) {
 
 // `vec` of a pass that has a staged body: 0 column by column, 1 the 16-byte
 // loads, kStaged the staged body ("The staged body of the norm, update
-// and dot passes").
+// and dot passes"; verified:mean's pass too).
 constexpr int kStaged = 2;
 
 // 0 where the staged body can run over s with the float32 vectors f0, f1
@@ -1426,3 +1511,53 @@ int clip_pass_info(int mode, int n, int vec, int* out) {
       LAUNCH(cc::kTile, false);           \
     }                                     \
   } while (0)
+
+namespace cc {
+
+// Launch verified:mean's one pass (mean_dot_pass_kernel) over P
+// partitions: v written, the (P, n, C) partials of <x_i - v, z> and
+// ||x_i - v||^2 into dot_part and sq_part. `vec` as for the norm, update
+// and dot passes (kStaged: the staged body, refused above 8 peers or off
+// 16 bytes, never run another way).
+template <int DT>
+int mean_dot_pass(const Stack<DT>& s, int P, long long cs, int C, int vec,
+                  const float* w, float* v, const float* z, float* dot_part,
+                  float* sq_part, cudaStream_t st) {
+  const int n = s.n;
+  const long long chunks = static_cast<long long>(P) * C;
+  if (vec == kStaged) {
+    const int rc = staged_status(s, v, z);
+    if (rc != 0) return rc;
+#define KERNEL(N) mean_dot_pass_kernel<N, DT, true, true>
+    CC_LAUNCH_STAGED(1, s, w, v, z, cs, C, P, dot_part, sq_part);
+#undef KERNEL
+  }
+#define LAUNCH(N, V)                                                       \
+  launch_pass(mean_dot_pass_kernel<N, DT, V>, chunks, st, s, w, v, z, cs, \
+              C, P, dot_part, sq_part)
+  CC_DISPATCH_PEERS(n, vec, LAUNCH);
+#undef LAUNCH
+  return launch_status();
+}
+
+// What the compiler made of verified:mean's pass at n peers and `vec`, as
+// kernel_info, with the dynamic shared memory a launch gives it.
+template <int DT>
+int mean_dot_pass_info(int n, int vec, int* out) {
+  out[3] = 0;
+  if (vec == kStaged) {
+    if (n < 1 || n > 8) return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = span_smem<DT>(n, 1);
+    if (n <= 4)
+      return kernel_info(mean_dot_pass_kernel<4, DT, true, true>, out, smem,
+                         span_smem<DT>(4, 1));
+    return kernel_info(mean_dot_pass_kernel<8, DT, true, true>, out, smem,
+                       span_smem<DT>(8, 1));
+  }
+#define INFO(N, V) return kernel_info(mean_dot_pass_kernel<N, DT, V>, out)
+  CC_DISPATCH_PEERS(n, vec, INFO);
+#undef INFO
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace cc

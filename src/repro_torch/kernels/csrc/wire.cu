@@ -6,7 +6,9 @@
 //   * butterfly_clip_fused_dequant_pallas (compressed:butterfly_clip):
 //       the passes of butterfly_clip_fused over the wire payloads;
 //   * mean_digest_fused_dequant_pallas    (compressed:verified:mean):
-//       the passes of mean_digest_fused over the wire payloads;
+//       mean_digest_fused's one read of the stack over the wire payloads
+//       (the pass that writes the mean and sums the digests' partials
+//       against it), then its finish;
 //   * centered_clip_pallas over a bf16 stack (#12 at unit scales): the
 //       two-phase clip's passes.
 // They reuse the float32 kernels' finishing steps (centered_clip.cu), which
@@ -103,17 +105,12 @@ int dot_pass(const void* x, const float* scales, long long ld,
 }
 
 template <int DT>
-int mean_pass(const void* x, const float* scales, long long ld,
-              long long part, long long d, int n, int P, long long cs, int C,
-              int vec, const float* w, float* v, cudaStream_t st) {
-  const auto s = cc::make_stack<DT>(x, scales, ld, part, d, n);
-  const long long chunks = static_cast<long long>(P) * C;
-#define LAUNCH(N, V)                                                        \
-  cc::launch_pass(cc::mean_pass_kernel<N, DT, V>, chunks, st, s, w, cs, C, \
-                  P, v)
-  CC_DISPATCH_PEERS(n, vec, LAUNCH);
-#undef LAUNCH
-  return cc::launch_status();
+int mean_dot_pass(const void* x, const float* scales, long long ld,
+                  long long part, long long d, int n, int P, long long cs,
+                  int C, int vec, const float* w, float* v, const float* z,
+                  float* dot_part, float* sq_part, cudaStream_t st) {
+  return cc::mean_dot_pass(cc::make_stack<DT>(x, scales, ld, part, d, n), P,
+                           cs, C, vec, w, v, z, dot_part, sq_part, st);
 }
 
 }  // namespace
@@ -123,9 +120,9 @@ int mean_pass(const void* x, const float* scales, long long ld,
 // element type and the (P, n) scales in front. `vec` 1: every (peer,
 // partition) row start of the payload 4 elements aligned (4 bytes of int8,
 // 8 of bf16) and the float32 vectors' 16 bytes. `vec` 2 (the norm, update
-// and dot passes up to 8 peers): the staged body, every row start of the
-// payload and the vectors 16-byte aligned; an ask it cannot run is
-// refused (cudaErrorInvalidValue above 8 peers,
+// and dot passes and verified:mean's pass, up to 8 peers): the staged
+// body, every row start of the payload and the vectors 16-byte aligned; an
+// ask it cannot run is refused (cudaErrorInvalidValue above 8 peers,
 // cudaErrorMisalignedAddress off 16 bytes), never run another way.
 // ---------------------------------------------------------------------------
 #define WIRE_DISPATCH(fn, ...)                                   \
@@ -187,12 +184,16 @@ extern "C" int wire_dot_pass(int dtype, const void* x, const float* scales,
                 dot_part, sq_part, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int wire_mean_pass(int dtype, const void* x, const float* scales,
-                              long long ld, long long part, long long d,
-                              int n, int P, long long cs, int C, int vec,
-                              const float* w, float* v, void* stream) {
-  WIRE_DISPATCH(mean_pass, x, scales, ld, part, d, n, P, cs, C, vec, w, v,
-                static_cast<cudaStream_t>(stream));
+// verified:mean's one pass over the wire payloads, as cc_mean_dot_pass.
+extern "C" int wire_mean_dot_pass(int dtype, const void* x,
+                                  const float* scales, long long ld,
+                                  long long part, long long d, int n, int P,
+                                  long long cs, int C, int vec,
+                                  const float* w, float* v, const float* z,
+                                  float* dot_part, float* sq_part,
+                                  void* stream) {
+  WIRE_DISPATCH(mean_dot_pass, x, scales, ld, part, d, n, P, cs, C, vec, w,
+                v, z, dot_part, sq_part, static_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -200,6 +201,7 @@ namespace {
 template <int DT>
 int pass_info(int pass, int n, int vec, int* out) {
   out[3] = 0;
+  if (pass == 4) return cc::mean_dot_pass_info<DT>(n, vec, out);
   if (vec == cc::kStaged) {
     if (n < 1 || n > 8) return static_cast<int>(cudaErrorInvalidValue);
 #define INFO(N)                                                               \
@@ -254,8 +256,8 @@ int pass_info(int pass, int n, int vec, int* out) {
 // out[0] registers a thread, out[1] local (spill) bytes, out[2] resident
 // CTAs per SM, out[3] dynamic shared memory a CTA. `pass`: 0 the norm
 // pass, 1 the update with norms, 2 the dot pass, 3 the dot pass with
-// norms; n and vec (0, 1, or 2: the staged body, n <= 8) pick the
-// instantiation as a launch would.
+// norms, 4 verified:mean's pass; n and vec (0, 1, or 2: the staged body,
+// n <= 8) pick the instantiation as a launch would.
 extern "C" int wire_pass_info(int dtype, int pass, int n, int vec, int* out) {
   WIRE_DISPATCH(pass_info, pass, n, vec, out);
 }

@@ -88,7 +88,7 @@ def digest_tables_all_op(grads, n_parts, agg, z):
 
 
 def mean_digest_fused_op(grads, n_parts, z, weights=None):
-    """verified:mean's aggregation and digests in two passes ->
+    """verified:mean's aggregation and digests in one read of the stack ->
     (agg (n_parts, part), s (n, n_parts), norms (n, n_parts))."""
     agg, s, norms = _k.mean_digest_fused(grads, n_parts, z, weights)
     return agg, s.T, norms.T

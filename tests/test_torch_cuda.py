@@ -14,7 +14,9 @@ partition lengths around a chunk boundary; and one stack gives the same
 bits at every storage offset and row stride. The adaptive loop (#3),
 decided on the card, gives the bits of the loop that read ||dv||^2 on
 the host before every iteration; the wire passes' staged body (#7, #8)
-gives its float32 twins' bits. Marked
+gives its float32 twins' bits; verified:mean's one pass (#5, #8) gives
+the digests a validator recomputes (#6, #9) against its v, bit for bit.
+Marked
 ``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
@@ -638,3 +640,93 @@ def test_adaptive_loop_at_unbounded_tol_on_card(cuda, tol):
     assert kc.LAUNCHES["adaptive_clip_step"] == before
     assert torch.equal(v, want_v) and torch.equal(it, want_it)
     assert it.tolist() == [0] * P
+
+
+def _index_order_mean(x, n_parts, w):
+    """v of verified:mean as the kernels form it, column by column: the
+    weighted sum by one rounding a peer (__fmaf_rn) in index order, then
+    one correctly rounded division by max(sum w, 1e-30). Each float32
+    operation is taken in float64 and rounded once to float32: exact for
+    peer weights in {0, 1}, where the product is exact and a float64 sum
+    or quotient of float32 values rounds to the same float32 as the
+    operation itself (53 >= 2 * 24 + 2). x (n, d) float32 -> (P, part)."""
+    xs = kc.stacked(x, n_parts).double()
+    num = torch.zeros((xs.shape[0], xs.shape[2]), dtype=torch.float64,
+                      device=x.device)
+    for i, wi in enumerate(w.tolist()):
+        assert wi in (0.0, 1.0)
+        num = (num + wi * xs[:, i]).float().double()
+    ws = max(float(np.float32(w.sum().item())), 1e-30)
+    return (num / np.float64(np.float32(ws))).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 8, 9, 16, 32, 33, 64])
+def test_mean_digest_tables_are_the_validators_recompute_bitwise_on_card(
+        cuda, n):
+    """verified:mean reads the stack once (#5 over float32, #8 over int8
+    and bf16 payloads), and its tables are what a validator recomputes:
+    s and norms equal #6 (``digest_tables_batched``) run over the stack
+    against #5's own v, and #9 (``digest_tables_rows``, tau 0) at two
+    sampled partitions, bit for bit; v is the index-order weighted sum
+    (``_index_order_mean``); a copy stored with every row start on 16
+    bytes (the staged body up to 8 peers) and one an element off (the
+    global body) give the same bits; #8 gives #5's bits on the dequantized
+    payloads. Four partitions with a partial last chunk and a ragged tail,
+    an all-zero payload (int8 scale 0) and a zero weight."""
+    from repro_torch.core import compression
+
+    P, rows = 4, [3, 1]
+    part = 2 * kc.CHUNK + 1024 + 16
+    d = P * part - 3
+    rng = np.random.default_rng(n)
+    g = torch.from_numpy((rng.standard_normal((n, d)) / math.sqrt(part))
+                         .astype(np.float32)).to(cuda)
+    g[-1] *= 10.0
+    g[0, :part] = 0.0
+    z = torch.from_numpy(rng.standard_normal((P, part))
+                         .astype(np.float32)).to(cuda)
+    z = z / torch.linalg.vector_norm(z, dim=1, keepdim=True)
+    w = torch.ones((n,), device=cuda)
+    if n > 1:
+        w[-2] = 0.0
+    wide = -(-d // 16) * 16 + 16
+    want5 = None
+    for codec in (None, "int8", "bf16"):
+        if codec is None:
+            x, sc, xd = g, None, g
+        else:
+            x, sc = _wire(g, P, codec)
+            xd = compression.wire_grads(g, codec, P)
+
+        def mean(x, sc=sc):
+            if sc is None:
+                return kc.mean_digest_fused(x, P, z, w)
+            return kc.mean_digest_fused_dequant(x, sc, P, z, w)
+
+        name = ("mean_digest_fused" if sc is None
+                else "mean_digest_fused_dequant")
+        before = kc.LAUNCHES[name]
+        out = mean(x)
+        torch.cuda.synchronize()
+        assert kc.LAUNCHES[name] - before == 1
+        v, s, norms = out
+        assert torch.equal(v, _index_order_mean(xd, P, w)), codec
+        s6, n6 = kc.digest_tables_batched(xd, P, v, z)
+        assert torch.equal(s, s6) and torch.equal(norms, n6), codec
+        s9, n9 = kc.digest_tables_rows(xd, P, v, z, rows, 0.0)
+        assert torch.equal(s[rows], s9) and torch.equal(norms[rows], n9)
+        for offset, ld in ((0, wide), (1, d)):
+            xs = _strided(x, offset, ld)
+            assert kc._Stack(xs, P, sc).stage == (offset == 0 and n <= 8)
+            got = mean(xs)
+            assert all(torch.equal(a, b) for a, b in zip(got, out)), (
+                codec, offset)
+        if codec is None:
+            want5 = out
+        else:
+            twin = kc.mean_digest_fused(xd, P, z, w)
+            assert all(torch.equal(a, b) for a, b in zip(out, twin)), codec
+    torch.testing.assert_close(
+        want5[0], kc.mean_digest_fused_plain(g, P, z, w)[0], rtol=1e-5,
+        atol=1e-5)

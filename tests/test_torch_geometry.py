@@ -479,11 +479,11 @@ def test_wire_passes_stage_only_16_byte_rows(calls, dtype, n, part, extra,
                                              offset, want):
     """The wire stack (row stride d + ``extra``, stored ``offset`` elements
     into its buffer, n partitions of ``part``) asks for the staged body
-    (vec 2) in #7's norm, update and dot passes and #8's dot pass exactly
+    (vec 2) in #7's norm, update and dot passes and #8's one pass exactly
     up to 8 peers where every row start is 16-byte aligned; else the
     16-byte loads (1) where a row start is on a group of 4 elements, else
-    column by column (0). #8's mean pass never stages. A float32 stack (#1
-    and #5) takes the same rule, under which a group of 4 is 16 bytes."""
+    column by column (0). A float32 stack (#1 and #5) takes the same rule,
+    under which a group of 4 is 16 bytes."""
     d = n * part
     g = _wire_stack(n, d, d + extra, offset, dtype)
     wire = dtype != torch.float32
@@ -496,12 +496,54 @@ def test_wire_passes_stage_only_16_byte_rows(calls, dtype, n, part, extra,
     passes = [(name[len(prefix):], _pass_args(name, args)[2])
               for name, args in calls if name.startswith(prefix)
               and not name.startswith("cc_finish")]
-    vec = min(want, 1)
     assert passes == ([("sq_pass", want)] + [("update", want)] * 3
-                      + [("dot_pass", want), ("mean_pass", vec),
-                         ("dot_pass", want)])
+                      + [("dot_pass", want), ("mean_dot_pass", want)])
     assert all(name.startswith("cc_finish") for name, _ in calls
                if not name.startswith(prefix))
     calls.clear()
     k.sq_pass(torch.zeros(n * part + 1)[1:].view(n, part), k.partials())
     assert _pass_args(*calls[-1])[2] == 0
+
+
+# ---------------------------------------------------------------------------
+# #5 and #8: verified:mean in one read of the stack
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n", [1, 4, 8, 9, 16, 32, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8,
+                                   torch.bfloat16])
+def test_mean_digest_is_one_pass(calls, dtype, n, aligned):
+    """verified:mean (#5 over float32, #8 over int8/bf16 payloads) launches
+    one pass, which writes v and the digests' partials against it, then the
+    finish that sums those partials, and nothing else. The pass takes the
+    staged body exactly where ``_Stack.stage`` allows it (up to 8 peers,
+    every row start on 16 bytes); a stack stored 8 bytes off 16 takes the
+    4-element loads where a group of 4 elements is 4 or 8 bytes (int8,
+    bf16; up to 8 peers), else column by column."""
+    n_parts, part = 2, 4096 + 16
+    d = n_parts * part
+    es = torch.empty((), dtype=dtype).element_size()
+    offset = 0 if aligned else 8 // es
+    g = _wire_stack(n, d, d, offset, dtype)
+    wire = dtype != torch.float32
+    k = kc._Stack(g, n_parts, torch.ones((n_parts, n)) if wire else None)
+    assert k.stage == (aligned and n <= 8)
+    if k.stage:
+        want = kc.STAGED
+    else:
+        want = int(n <= 8 and offset * es % (kc.GROUP * es) == 0)
+    z, w = torch.zeros((n_parts, part)), torch.ones(n)
+    v, s, norms = kc._mean_digest(k, z, w)
+    prefix = "wire_" if wire else "cc_"
+    assert [name for name, _ in calls] == [prefix + "mean_dot_pass",
+                                           "cc_finish_digests"]
+    (_, args), (_, fargs) = calls
+    geo = kc.chunk_grid(n, d, n_parts)
+    cs, C, vec, own = _pass_args(prefix + "mean_dot_pass", args)
+    assert (cs, C, vec) == (geo.cs, geo.C, want)
+    assert own[:3] == (w.data_ptr(), v.data_ptr(), z.data_ptr())
+    # the finish sums the (P, n, C) partials the pass wrote into (s, norms)
+    assert fargs[:5] == (own[3], own[4], n_parts, C, n)
+    assert fargs[5:7] == (s.data_ptr(), norms.data_ptr())
+    assert v.shape == (n_parts, part) and s.shape == norms.shape == (
+        n_parts, n)
