@@ -80,7 +80,19 @@ Phases, each printing its own line:
      peers 9-15 banned, #1 60 launches), with 40 peers (33-39, #1 through
      the peer-tiled passes) and the trusted-server centered_clip (no ban,
      no kernel);
-  9. the launches of every kernel per path.
+  9. (n) elastic membership through ``engine.scan_protocol`` at full
+     width: 6 slots, an honest peer joining vacant slot 0 at step 3, the
+     sign-flipping slot 5 banned, leaving at step 6 and rejoining under a
+     new key at step 8, 12 steps (#1 once a step): the rejoin banned from
+     probation (BAN_SYBIL), both identities on the ban ledger, slot 0
+     promoted after 3 clean checks, no honest accusation, and every
+     aggregate bit for bit that of a second run, in lockstep on the same
+     gradients, where slot 5 never comes back; (o) the paper's §4.2 setup, ``repro_torch.launch.albert_pretrain
+     --full --steps 12 --attack-start 4`` (ALBERT-large, vocabulary 512,
+     16 peers, 9-15 sign-flipping, lamb(2e-3), tau 2, clip_lambda 20, 40
+     iterations, the host loop; #1 once a step), then #1 at its (16, d')
+     stack with 40 iterations held against its plain version and timed;
+  10. the launches of every kernel per path.
 
 Before the last line it prints the card's name and power limit and a JSON
 object with each kernel's numbers; the last line is the device record.
@@ -501,7 +513,8 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
 
 
 # the side cases a kernel's row carries: stats key suffix -> row key
-SIDE_ROWS = {"@16": "at_16_peers", "@owner": "at_owner_stack"}
+SIDE_ROWS = {"@16": "at_16_peers", "@owner": "at_owner_stack",
+             "@s42": "at_section_4_2"}
 
 
 def fold_side(stats, name, suffix):
@@ -1298,6 +1311,190 @@ def run_fig9(label, stats):
     return counts
 
 
+def run_membership_path(label):
+    """Elastic membership through ``engine.scan_protocol`` at full width:
+    ALBERT-large from ``lm_setup`` as ``run_engine_path`` builds it, 6
+    slots, butterfly_clip at CLIP_ITERS iterations, 2 validators; slot 0
+    starts vacant and an honest peer joins it at step 3, slot 5
+    sign-flips (lam 1) from step 0, leaves at step 6 and rejoins under a
+    new key at step 8 (``rejoin_under_new_key``); 3 events, a probation
+    window of 3, 12 steps. Beside it, in lockstep, a second run where
+    slot 5 never comes back (only the leave) on the same gradients: each
+    step's (n, d) stack is computed once, for the first run's parameters,
+    and handed to both, since autograd's own sums need not repeat bit for
+    bit. The launch counts are set to 0 just before and read just after.
+    Checks: slot 5 banned before step 6 and never active after its
+    rejoin, which ends in BAN_SYBIL; both of slot 5's identities on the
+    identity ban ledger; slot 0 vacant, then in probation, then active
+    after 3 clean checks; no honest slot accused or banned; every g_hat
+    finite and bit for bit the second run's (so are the parameters); #1
+    once a step in each run and no other kernel. Returns the counts."""
+    from repro_torch.core import engine as eng
+    from repro_torch.core.attacks import rejoin_under_new_key
+    from repro_torch.core.engine import (BAN_SYBIL, SLOT_ACTIVE, SLOT_BANNED,
+                                         SLOT_PROBATION, SLOT_VACANT)
+    from repro_torch.core.flatten import FlatBoundary, tree_unflatten
+    from repro_torch.core.protocol import AttackConfig
+    from repro_torch.kernels import centered_clip as kc
+    from repro_torch.models.workload import lm_setup
+    from repro_torch.optim import apply_updates, sgd
+
+    n, byz_slot, steps, device = 6, 5, 12, "cuda"
+    loss_fn, params0, batch_fn, _ = lm_setup(
+        "albert_large", seq_len=128, batch_size=4, reduced=False,
+        device=device)
+    boundary = FlatBoundary(params0)
+    params = boundary.flatten(params0)
+    del params0
+
+    def grad_fn(flat, batch):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in boundary.unflatten_leaves(flat)]
+        loss = loss_fn(tree_unflatten(boundary.template, leaves), batch)
+        return boundary.flatten_leaves(torch.autograd.grad(loss, leaves))
+
+    opt = sgd(0.05)
+
+    def update_fn(p, g_hat, t):
+        upd, _ = opt.update(g_hat, {}, p, t)
+        return apply_updates(p, upd)
+
+    grads_fn = eng.device_data_grads_fn(n, batch_fn, grad_fn)
+    stash = []
+
+    def stashing_grads_fn(p, t, flips):
+        stash[:] = [grads_fn(p, t, flips)]
+        return stash[0]
+
+    cfg = eng.config_from_attack(
+        n, boundary.d, AttackConfig(kind="sign_flip", lam=1.0), tau=1.0,
+        clip_iters=CLIP_ITERS, m_validators=2, n_events=3, probation_steps=3)
+    byz_mask = torch.tensor([1.0 if i == byz_slot else 0.0
+                             for i in range(n)], device=device)
+    join = [(3, "join", 0)]
+    state, gone = (eng.init_state(cfg, seed=0, events=ev, vacant=(0,),
+                                  device=device)
+                   for ev in (join + rejoin_under_new_key(byz_slot, 6, 8),
+                              join + [(6, "leave", byz_slot)]))
+    p, p_gone, outs, seconds = params, params, [], []
+    kc.reset_launch_counts()
+    for t in range(steps):
+        (state, p, (out,)), sec = timed(lambda: eng.scan_protocol(
+            cfg, state, byz_mask, p, stashing_grads_fn, 1, update_fn))
+        seconds.append(sec)
+        gone, p_gone, (out_gone,) = eng.scan_protocol(
+            cfg, gone, byz_mask, p_gone, lambda *_: stash[0], 1, update_fn)
+        check(bool(torch.isfinite(out.g_hat).all()),
+              f"{label}: non-finite g_hat at step {t}")
+        check(torch.equal(out.g_hat, out_gone.g_hat) and torch.equal(
+            p, p_gone), f"{label}: g_hat at step {t} differs from the run "
+              f"where slot {byz_slot} never came back")
+        outs.append(dict(
+            life=out.lifecycle.tolist(), banned=out.banned_now.tolist(),
+            reason=out.ban_reason_now.tolist(),
+            accused=(out.accuse_mat.any(dim=0) | out.sys_accuse).tolist()))
+    stash.clear()
+    counts = dict(kc.LAUNCHES)
+    want = {name: 0 for name in counts}
+    want["butterfly_clip_fused"] = 2 * steps
+    check(counts == want, f"{label}: launches {counts}, expected {want} "
+          "(two runs)")
+    life = [o["life"] for o in outs]
+    honest = [i for i in range(n) if i != byz_slot]
+    first_id, new_id = byz_slot, int(state.slot_identity[byz_slot])
+    id_ban = state.id_ban_step.tolist()
+    check(SLOT_BANNED in [row[byz_slot] for row in life[:6]]
+          and 0 <= id_ban[first_id] < 6,
+          f"{label}: slot {byz_slot} not banned before step 6: {life}")
+    check(all(row[byz_slot] != SLOT_ACTIVE for row in life[8:])
+          and life[-1][byz_slot] == SLOT_BANNED,
+          f"{label}: slot {byz_slot} active again after its rejoin: {life}")
+    sybil = [o["reason"][byz_slot] for o in outs[8:] if o["banned"][byz_slot]]
+    check(sybil == [BAN_SYBIL], f"{label}: rejoin bans {sybil}")
+    check(new_id != first_id and id_ban[new_id] >= 8,
+          f"{label}: identities {first_id}, {new_id} not both banned: "
+          f"{id_ban}")
+    check([row[0] for row in life] == [SLOT_VACANT] * 3
+          + [SLOT_PROBATION] * 2 + [SLOT_ACTIVE] * 7,
+          f"{label}: slot 0 lifecycle {[row[0] for row in life]}")
+    for t, o in enumerate(outs):
+        check(not any(o["banned"][i] or o["accused"][i] for i in honest),
+              f"{label}: honest slot accused or banned at step {t}: {o}")
+    print(f"{label}: median step {statistics.median(seconds):.3f} s over "
+          f"{steps} steps {[round(x, 4) for x in seconds]}; slot {byz_slot} "
+          f"banned at step {id_ban[first_id]}, its new identity {new_id} at "
+          f"step {id_ban[new_id]} (BAN_SYBIL); slot 0 active from step 5; "
+          "every g_hat and parameter bit for bit the leave-only run's; "
+          f"launches {counts} for both runs", flush=True)
+    del params, p, p_gone, state, gone
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_section_4_2(label, stats):
+    """The paper's §4.2 setup through its entry point,
+    ``python -m repro_torch.launch.albert_pretrain --full --steps 12
+    --attack-start 4`` (ALBERT-large at full width, vocabulary 512; 16
+    peers, 9-15 sign-flipping; lamb(2e-3), tau 2, clip_lambda 20, 40
+    iterations, 1 validator; the host loop), with the launch counts set
+    to 0 just before and read just after. Checks: a finite eval loss at
+    every printed step, every ban inside {9..15} and at least one, no
+    honest peer accused, #1 once a step and no other kernel. Then #1 at
+    this path's (16, d') stack, 16 partitions, 40 iterations at tau 2
+    from a cold start, held against its plain version and timed as in
+    phase 2, folded into #1's row of ``stats`` (``at_section_4_2``).
+    Returns the launch counts."""
+    from repro_torch.kernels import centered_clip as kc
+    from repro_torch.launch import albert_pretrain as ap
+
+    args = ap.build_parser().parse_args(
+        ["--full", "--steps", "12", "--attack-start", "4"])
+    kc.reset_launch_counts()
+    tr, rec = ap.run(args)
+    torch.cuda.synchronize()
+    counts = dict(kc.LAUNCHES)
+    byz = set(ap.BYZANTINE)
+    losses, final, seconds = (rec["eval_losses"], rec["final_loss"],
+                              rec["seconds"])
+    check(all(map(math.isfinite, list(losses.values()) + [final])),
+          f"{label}: eval losses {losses}, final {final}")
+    check(tr.banned and tr.banned <= byz,
+          f"{label}: banned {sorted(tr.banned)}, expected a non-empty "
+          f"subset of {sorted(byz)}")
+    accused = set(rec["accused"])
+    check(accused <= byz, f"{label}: honest peers accused {accused - byz}")
+    want = {name: 0 for name in counts}
+    want["butterfly_clip_fused"] = args.steps
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    d = tr.d
+    print(f"{label}: d' = {d}; median step {statistics.median(seconds):.3f}"
+          f" s over {len(seconds)} steps {[round(x, 4) for x in seconds]}; "
+          f"banned {len(tr.banned)} of {len(byz)} {sorted(tr.banned)}; final "
+          f"eval loss {final:.4f}; launches {counts}", flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(42)
+    n = n_parts = ap.PEERS
+    grads = stack(n, d, gen, "cuda")
+    part = kc.part_len(d, n_parts)
+    z = torch.randn((n_parts, part), generator=gen, device="cuda")
+    z = z / torch.linalg.vector_norm(z, dim=1, keepdim=True)
+    taus, it = [2.0] * 40, 40
+    nd, pd, tbl = n * d, n_parts * part, 2 * n * n_parts * 4
+    hold(stats, "butterfly_clip_fused@s42",
+         f"butterfly_clip_fused n={n} d={d} P={n_parts} {it} iterations "
+         "tau=2 cold",
+         lambda: kc.butterfly_clip_fused(grads, n_parts, taus, z),
+         lambda: kc.butterfly_clip_fused_plain(grads, n_parts, taus, z),
+         (nd + 2 * pd) * 4 + tbl, nd * (6 * it + 6),
+         ((it + 2) * nd + (2 * it + 1) * pd) * 4 + tbl, True, phase=label)
+    fold_side(stats, "butterfly_clip_fused", "@s42")
+    del grads, z
+    torch.cuda.empty_cache()
+    return counts
+
+
 def run_toy(label, argv, banned, launches):
     """The §4.1 toy classifier through ``train_byzantine``'s default path
     (the host loop, no --model) with the launch counts set to 0 just
@@ -1474,7 +1671,13 @@ def main():
                                        defense],
             range(peers - 7, peers) if defense == "btard" else (), launches)
 
-    print("phase 9: kernels launched per path: " + json.dumps(paths),
+    # elastic membership through the engine, and the paper's §4.2 setup
+    paths["membership"] = run_membership_path(
+        "phase 9 (n) elastic membership: 6 slots, join, leave, rejoin under "
+        "a new key")
+    paths["section_4_2"] = run_section_4_2(
+        "phase 9 (o) section 4.2: albert_pretrain --full", stats)
+    print("phase 10: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
             "adaptive", "adaptive_clip_step": "adaptive",

@@ -101,6 +101,20 @@ def attack_index(kind: str) -> int:
     return ATTACK_INDEX[kind]
 
 
+def rejoin_under_new_key(slot, leave_step, rejoin_step, identity=None):
+    """The churn adversary: a (typically already banned) peer vacates its
+    slot and rejoins it, going on with whatever gradient attack its slot's
+    ``byz_mask`` entry encodes. ``identity=None`` is the NEW-KEY variant:
+    ``engine.encode_events`` mints a fresh identity, so the ban ledger
+    does not refuse it at admission and the probation spot-check
+    (``core.sybil``) must catch it; the original identity gives the
+    SAME-KEY variant, refused at admission from the identity ban ledger.
+    Returns an event schedule for ``init_state(events=...)``."""
+    join = ((rejoin_step, "join", slot) if identity is None
+            else (rejoin_step, "join", slot, identity))
+    return [(leave_step, "leave", slot), join]
+
+
 def apply_attack(idx, grads, byz_mask, *, key, lam=1000.0, delayed=None,
                  hon_mask=None):
     """Apply registry attack ``idx`` to the stacked gradients.

@@ -93,6 +93,7 @@ class BTARDTrainer:
         self.state = eng.init_state(self.engine_config, seed=cfg.seed,
                                     device=self.device)
         self.banned: set = set()
+        self.accused_now: list = []  # the host loop's last accusations
         self.validators = _mask_to_list(self.state.validator)
         self.history: list = []
         self._step = 0
@@ -121,7 +122,8 @@ class BTARDTrainer:
     def _protocol_step(self, t):
         """One BTARD round on the active peers' gradients (banned rows stay
         zero), as the JAX package's ``BTARDProtocol.step``. Returns (g_hat,
-        the peers banned this step as (peer, reason) pairs)."""
+        the peers banned this step as (peer, reason) pairs); the step's
+        accusation targets and system accusations go to ``accused_now``."""
         ecfg, st = self.engine_config, self.state
         if st.step != t:  # honour the caller's step index
             st = st._replace(step=t)
@@ -146,6 +148,7 @@ class BTARDTrainer:
                for i in torch.nonzero(out.banned_now.cpu()).flatten().tolist()
                if i not in self.banned]
         self.banned.update(p for p, _ in new)
+        self.accused_now = _accused(out)
         self.validators = _mask_to_list(self.state.validator)
         return out.g_hat, new
 
@@ -194,7 +197,9 @@ class BTARDTrainer:
     def run(self, n_steps, eval_fn=None, eval_every=10, log=None):
         """``n_steps`` of the host loop, one history record each:
         step, grad_norm, n_banned, banned_now (protocol defenses) and,
-        every ``eval_every`` steps, eval_fn(params tree)."""
+        every ``eval_every`` steps, eval_fn(params tree). A protocol
+        step's accusations are in ``accused_now``, as the JAX package's
+        record has none."""
         for _ in range(n_steps):
             g, banned_now = self.train_step()
             rec = {
@@ -236,16 +241,12 @@ class BTARDTrainer:
         new = [(int(i), eng.BAN_REASON_NAMES[int(reasons[i])])
                for i in torch.nonzero(banned_now).flatten().tolist()]
         self.banned.update(p for p, _ in new)
-        # accusation targets (columns of the accuser x target matrix) plus
-        # the system (checksum / Delta_max) accusations, as the JAX trainer
-        # lists them
-        accused = (out.accuse_mat.any(dim=0) | out.sys_accuse).cpu()
         rec = {
             "step": self._step,
             "grad_norm": float(torch.linalg.vector_norm(out.g_hat)),
             "n_banned": len(self.banned),
             "banned_now": new,
-            "accused_peers": torch.nonzero(accused).flatten().tolist(),
+            "accused_peers": _accused(out),
             "clip_iters_used": int(out.clip_iters_used),
         }
         self.history.append(rec)
@@ -259,6 +260,13 @@ class BTARDTrainer:
 
 def _mask_to_list(mask):
     return torch.nonzero(mask > 0).flatten().tolist()
+
+
+def _accused(out):
+    """A step's accusation targets (columns of the accuser x target
+    matrix) plus its system (checksum / Delta_max) accusations, as the
+    JAX trainer lists them."""
+    return _mask_to_list(out.accuse_mat.any(dim=0) | out.sys_accuse)
 
 
 def restarted_btard_sgd(make_trainer, n_restarts: int, steps_fn, lr_fn):

@@ -24,14 +24,24 @@ sampled partitions) and the ``col_checked`` ledger tracks each column's
 audit age; with ``groups`` the hierarchical butterfly (:func:`phase_hier`)
 replaces the flat aggregation and verification.
 
-Not ported here (``EngineConfig`` rejects it): elastic membership
-(``n_events``), ROADMAP queue 1 item 11.
+Elastic membership (``n_events > 0``, ``core.sybil``): the peer axis is a
+capacity of slots, each vacant, in probation, active or banned. A
+join/leave schedule (:func:`encode_events`) fires before each round
+(:func:`phase_membership`); a probation row is attacked and spot-checked
+against its public-seed recompute but zeroed before the aggregate, banned
+(``BAN_SYBIL``) on one mismatch and promoted after ``probation_steps``
+clean checks; the ``id_*`` ledgers are keyed by identity, so churn never
+launders a ban. The schedule is a host tensor, since which events fire at
+``state.step`` is a host decision; whether a fired event applies (a leave
+of a vacant slot, a join onto an occupied one) is decided on the device.
+With ``n_events == 0`` none of it runs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -41,13 +51,21 @@ from repro_torch.core import butterfly as bf
 from repro_torch.core import compression as comp_mod
 from repro_torch.core import hierarchy as hier_mod
 from repro_torch.core import prng
+from repro_torch.core import sybil as sybil_mod
 from repro_torch.core import verification as verif_mod
+from repro_torch.core.sybil import (  # noqa: F401 (the lifecycle codes)
+    SLOT_ACTIVE,
+    SLOT_BANNED,
+    SLOT_PROBATION,
+    SLOT_VACANT,
+)
 
 BAN_NONE = 0
 BAN_CHEATER = 1  # accused and the recompute proved it (ACCUSE, Alg. 4)
 BAN_COVERUP = 2  # misreported s for a banned peer's partition
 BAN_FALSE_ACCUSER = 3  # slandered an honest peer (Hammurabi rule, Alg. 3)
 BAN_MPRNG = 4  # aborted / mismatched the MPRNG commit-reveal (App. A.2)
+BAN_SYBIL = 5  # failed a probation spot-check (Sybil gate, §3.3 / App. F)
 
 BAN_REASON_NAMES = {
     BAN_NONE: "",
@@ -55,7 +73,13 @@ BAN_REASON_NAMES = {
     BAN_COVERUP: "covered up a banned peer (s mismatch)",
     BAN_FALSE_ACCUSER: "false accusation",
     BAN_MPRNG: "mprng abort/mismatch",
+    BAN_SYBIL: "probation spot-check failed (sybil gate)",
 }
+
+# Membership event codes (ProtocolState.events rows: [step, kind, slot, id])
+EVENT_NONE = 0
+EVENT_JOIN = 1
+EVENT_LEAVE = 2
 
 
 class ProtocolState(NamedTuple):
@@ -73,6 +97,15 @@ class ProtocolState(NamedTuple):
     last_checked: torch.Tensor  # (n,) i32, step last audited
     col_checked: torch.Tensor  # (n,) i32, step each column was checked
     delay_buf: torch.Tensor | None  # (D, n, d), delayed_gradient only
+    # elastic membership (core.sybil)
+    lifecycle: torch.Tensor  # (n,) i32, SLOT_* code per slot
+    slot_identity: torch.Tensor  # (n,) i32, the occupant's identity, -1
+    probation_clean: torch.Tensor  # (n,) i32, consecutive clean checks
+    events: torch.Tensor  # (n_events, 4) i32 on the host: [step, kind,
+    # slot, identity]
+    id_ban_step: torch.Tensor  # (n_ids,) i32, identity ban ledger, -1
+    id_ban_reason: torch.Tensor  # (n_ids,) i32, BAN_* per identity
+    id_accused: torch.Tensor  # (n_ids,) i32, per-identity accusations
 
 
 class StepOutputs(NamedTuple):
@@ -90,6 +123,7 @@ class StepOutputs(NamedTuple):
     clip_iters_used: int  # largest CenteredClip budget any partition ran
     sampled_parts: torch.Tensor  # (n,) bool, digest columns broadcast this
     # step (all True when sampled-digest audits are off)
+    lifecycle: torch.Tensor  # (n,) i32, post-step SLOT_* code per slot
 
 
 @dataclass(frozen=True)
@@ -118,17 +152,21 @@ class EngineConfig:
     aggregator: object = None
     audit_k: int | None = None
     groups: int | None = None
+    # elastic membership: capacity of the join/leave event table, 0 = a
+    # fixed peer set (no membership machinery runs)
     n_events: int = 0
+    # consecutive clean spot-checks before probation -> active (App. F)
+    probation_steps: int = 4
+    # identity-ledger capacity; 0 = n + n_events
+    max_identities: int = 0
 
     def __post_init__(self):
         if self.audit_k is not None and self.audit_k < 1:
             raise ValueError("audit_k must be >= 1 (None = full tables)")
         if self.hierarchical:
             hier_mod.group_shape(self.n, self.groups)  # validates n % g
-        if self.n_events:
-            raise NotImplementedError(
-                "n_events > 0 (elastic membership) is not ported to "
-                "repro_torch yet (ROADMAP queue 1, item 11)")
+        if self.n_events < 0 or self.probation_steps < 1:
+            raise ValueError("n_events >= 0 and probation_steps >= 1")
 
     def agg_spec(self) -> agg_mod.AggregatorSpec:
         """The resolved spec, the legacy knobs filled in as defaults."""
@@ -139,6 +177,14 @@ class EngineConfig:
     @property
     def hierarchical(self) -> bool:
         return self.groups is not None and self.groups > 1
+
+    @property
+    def elastic(self) -> bool:
+        return self.n_events > 0
+
+    @property
+    def n_ids(self) -> int:
+        return max(self.max_identities, self.n + self.n_events)
 
     @property
     def n_parts(self) -> int:
@@ -173,10 +219,53 @@ def config_from_attack(n, d, attack, **kw) -> EngineConfig:
         mprng_abort=attack.mprng_abort, **kw)
 
 
-def init_state(cfg: EngineConfig, seed: int = 0, device=None) -> ProtocolState:
+def encode_events(cfg: EngineConfig, schedule) -> torch.Tensor:
+    """A churn schedule -> the ``(cfg.n_events, 4)`` int32 event table
+    (on the host) that :class:`ProtocolState` carries.
+
+    ``schedule``: ``(step, kind, slot)`` / ``(step, kind, slot, identity)``
+    tuples (kind ``"join"``/``"leave"`` or an EVENT_* code) or
+    :class:`core.sybil.MembershipEvent`. A join WITHOUT an identity gets a
+    fresh one (``n``, ``n+1``, ... in schedule order): the rejoin under a
+    new key; the identity of a banned peer is the same-key rejoin,
+    re-banned at admission from the identity ledger. Rows sort by (step,
+    leaves first), so a leave and a join on one slot at one step are a
+    handoff; unused rows are inert (step -1 never fires)."""
+    kind_codes = {"join": EVENT_JOIN, "leave": EVENT_LEAVE,
+                  EVENT_JOIN: EVENT_JOIN, EVENT_LEAVE: EVENT_LEAVE}
+    rows, next_id = [], cfg.n
+    for ev in schedule:
+        if isinstance(ev, sybil_mod.MembershipEvent):
+            ev = (ev.step, ev.kind, ev.slot)
+        step, kind, slot = ev[0], kind_codes[ev[1]], ev[2]
+        if not 0 <= slot < cfg.n:
+            raise ValueError(f"event slot {slot} outside [0, {cfg.n})")
+        if kind == EVENT_JOIN:
+            ident = ev[3] if len(ev) > 3 else next_id
+            next_id = max(next_id, ident + 1)
+            if not 0 <= ident < cfg.n_ids:
+                raise ValueError(
+                    f"identity {ident} outside [0, {cfg.n_ids}); raise "
+                    "EngineConfig.max_identities")
+        else:
+            ident = -1
+        rows.append((int(step), int(kind), int(slot), int(ident)))
+    if len(rows) > cfg.n_events:
+        raise ValueError(
+            f"{len(rows)} events > EngineConfig.n_events={cfg.n_events}")
+    rows.sort(key=lambda r: (r[0], 0 if r[1] == EVENT_LEAVE else 1))
+    rows += [(-1, EVENT_NONE, 0, -1)] * (cfg.n_events - len(rows))
+    return torch.tensor(rows, dtype=torch.int32).reshape(cfg.n_events, 4)
+
+
+def init_state(cfg: EngineConfig, seed: int = 0, events=None, vacant=(),
+               device=None) -> ProtocolState:
     """The initial state, on the CUDA device unless ``device`` says
-    otherwise. The delayed-gradient ring buffer exists only for that
-    attack (the JAX package carries a dense (1, n, d) one always)."""
+    otherwise (the event table stays on the host). ``events``: a churn
+    schedule (anything :func:`encode_events` takes) or an encoded
+    (n_events, 4) table; ``vacant``: slots that start unoccupied. The
+    delayed-gradient ring buffer exists only for that attack (the JAX
+    package carries a dense (1, n, d) one always)."""
     device = resolve_device(device)
     n = cfg.n
     if cfg.attack == "delayed_gradient" and cfg.delay_depth * n * cfg.d > 2**28:
@@ -184,8 +273,22 @@ def init_state(cfg: EngineConfig, seed: int = 0, device=None) -> ProtocolState:
             f"delayed_gradient ring buffer would be (delay={cfg.delay}, n={n},"
             f" d={cfg.d}); set AttackConfig.delay to the delay you want")
     i32 = dict(dtype=torch.int32, device=device)
+    lifecycle = torch.full((n,), SLOT_ACTIVE, **i32)
+    slot_identity = torch.arange(n, **i32)
+    for s in vacant:
+        lifecycle[int(s)] = SLOT_VACANT
+        slot_identity[int(s)] = -1
+    if events is None:
+        ev = torch.full((cfg.n_events, 4), -1, dtype=torch.int32)
+    elif getattr(events, "ndim", 0) == 2:
+        ev = torch.as_tensor(np.asarray(events), dtype=torch.int32)
+        if tuple(ev.shape) != (cfg.n_events, 4):
+            raise ValueError(
+                f"events shape {tuple(ev.shape)} != ({cfg.n_events}, 4)")
+    else:
+        ev = encode_events(cfg, events)
     key = prng.key(seed, device=device)
-    active0 = torch.ones((n,), dtype=torch.float32, device=device)
+    active0 = (lifecycle == SLOT_ACTIVE).to(torch.float32)
     validator = _elect(cfg, prng.fold_in(key, 2**31 - 1), active0)
     delay_buf = None
     if cfg.attack == "delayed_gradient":
@@ -203,6 +306,13 @@ def init_state(cfg: EngineConfig, seed: int = 0, device=None) -> ProtocolState:
         last_checked=torch.full((n,), -1, **i32),
         col_checked=torch.full((n,), -1, **i32),
         delay_buf=delay_buf,
+        lifecycle=lifecycle,
+        slot_identity=slot_identity,
+        probation_clean=torch.zeros((n,), **i32),
+        events=ev,
+        id_ban_step=torch.full((cfg.n_ids,), -1, **i32),
+        id_ban_reason=torch.zeros((cfg.n_ids,), **i32),
+        id_accused=torch.zeros((cfg.n_ids,), **i32),
     )
 
 
@@ -218,18 +328,81 @@ def _phase_key(state: ProtocolState, phase: int):
 
 
 def flip_mask(cfg: EngineConfig, state: ProtocolState, byz_mask):
-    """Peers whose gradients are computed with flipped labels this step."""
+    """Peers whose gradients are computed with flipped labels this step.
+    Probation rows flip too: their public-seed work is what the Sybil gate
+    spot-checks, so the attack must be allowed to land there."""
     byz = torch.as_tensor(byz_mask, device=state.active.device) > 0
     if cfg.attack != "label_flip" or not _attacking(cfg, state.step):
         return torch.zeros_like(byz)
-    return byz & (state.active > 0)
+    return byz & ((state.active > 0) | (state.lifecycle == SLOT_PROBATION))
 
 
-def phase_attack(cfg, state, G, honest_G, byz):
+def phase_membership(cfg: EngineConfig, state: ProtocolState) -> ProtocolState:
+    """Fire this step's join/leave events before the round runs, in row
+    order (leaves first at a step).
+
+    Leave: the slot goes vacant, and the SLOT ledgers (ban_step,
+    ban_reason, accused_count, probation_clean) reset with its occupant,
+    whose history lives on in the identity ledgers. Join: only onto a
+    vacant slot; the incoming identity's history comes back from the
+    identity ledgers: a banned identity (same-key rejoin) lands in BANNED
+    with its ban step and reason, anyone else starts PROBATION at zero
+    clean checks. ``col_checked`` and ``last_checked`` describe the
+    topology, not the occupant, and stay. An event whose precondition
+    fails is a no-op: each write is masked to the one slot where it
+    applies, never clamped into another."""
+    if not cfg.elastic:
+        return state
+    n = cfg.n
+    lifecycle, slot_identity = state.lifecycle, state.slot_identity
+    clean, accused = state.probation_clean, state.accused_count
+    ban_step, ban_reason = state.ban_step, state.ban_reason
+    slots = torch.arange(n, device=lifecycle.device)
+
+    def put(mask, value, into):
+        return torch.where(mask, torch.as_tensor(value, dtype=into.dtype,
+                                                 device=into.device), into)
+
+    for step, kind, slot, ident in state.events.tolist():
+        if step != state.step:
+            continue
+        at = slots == min(max(slot, 0), n - 1)
+        if kind == EVENT_LEAVE:
+            do = at & (lifecycle != SLOT_VACANT)
+            lifecycle = put(do, SLOT_VACANT, lifecycle)
+            slot_identity = put(do, -1, slot_identity)
+            clean = put(do, 0, clean)
+            accused = put(do, 0, accused)
+            ban_step = put(do, -1, ban_step)
+            ban_reason = put(do, BAN_NONE, ban_reason)
+        elif kind == EVENT_JOIN:
+            ident = min(max(ident, 0), cfg.n_ids - 1)
+            do = at & (lifecycle == SLOT_VACANT)
+            id_ban = state.id_ban_step[ident]
+            pre_banned = id_ban >= 0
+            lifecycle = put(do, torch.where(pre_banned, SLOT_BANNED,
+                                            SLOT_PROBATION), lifecycle)
+            slot_identity = put(do, ident, slot_identity)
+            clean = put(do, 0, clean)
+            accused = put(do, state.id_accused[ident], accused)
+            ban_step = put(do, torch.where(pre_banned, id_ban, -1), ban_step)
+            ban_reason = put(do, torch.where(
+                pre_banned, state.id_ban_reason[ident], BAN_NONE), ban_reason)
+    active = (lifecycle == SLOT_ACTIVE).to(torch.float32)
+    return state._replace(
+        lifecycle=lifecycle, slot_identity=slot_identity,
+        probation_clean=clean, accused_count=accused, ban_step=ban_step,
+        ban_reason=ban_reason, active=active,
+        validator=state.validator * active)
+
+
+def phase_attack(cfg, state, G, honest_G, byz, engage_b=None):
     """Byzantine rows swap in their attack vectors; the delay ring buffer
-    rotates; honest peers optionally self-clip (Alg. 9)."""
+    rotates; honest peers optionally self-clip (Alg. 9). ``engage_b``
+    widens the attacked rows beyond the active set (the elastic path adds
+    the probation rows, so the Sybil spot-check sees the attack)."""
     t = state.step
-    active_b = state.active > 0
+    active_b = state.active > 0 if engage_b is None else engage_b
     delay_buf = state.delay_buf
     if cfg.has_gradient_attack and _attacking(cfg, t):
         delayed = None
@@ -622,16 +795,19 @@ def _elect(cfg: EngineConfig, key, active):
 # ---------------------------------------------------------------------------
 def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
                   honest_G):
-    """One BTARD-SGD aggregation round: the hierarchical, the flat
-    verifiable or the non-verifiable branch.
+    """One BTARD-SGD aggregation round: the membership events, then the
+    hierarchical, the flat verifiable or the non-verifiable branch.
 
     G / honest_G: (n, d) — honest_G is what a validator recomputing from
     the public seed obtains (the same tensor as G unless labels were
-    flipped). Banned rows are zeroed here. Returns (new_state, outputs).
+    flipped). Rows of slots neither active nor in probation are zeroed
+    here, probation rows after the attack and their spot-check. Returns
+    (new_state, outputs).
     """
     spec = cfg.agg_spec()
     device = state.active.device
     byz = torch.as_tensor(byz_mask, device=device) > 0
+    state = phase_membership(cfg, state)
     active = state.active
     active_b = active > 0
     validator = state.validator * active
@@ -641,11 +817,28 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
         weights = active  # nothing to audit: every active peer contributes
 
     same = honest_G is G
-    G = torch.where(active_b[:, None], G.to(torch.float32), 0.0)
+    # probation rows keep their payloads through the attack (the Sybil gate
+    # must see what they broadcast), are spot-checked every step, and are
+    # zeroed before the aggregate and the accusations
+    engaged = active_b
+    if cfg.elastic:
+        prob_b = state.lifecycle == SLOT_PROBATION
+        engaged = active_b | prob_b
+    G = torch.where(engaged[:, None], G.to(torch.float32), 0.0)
     honest_G = G if same else torch.where(
-        active_b[:, None], honest_G.to(torch.float32), 0.0)
-
-    G, honest_G, delay_buf = phase_attack(cfg, state, G, honest_G, byz)
+        engaged[:, None], honest_G.to(torch.float32), 0.0)
+    G, honest_G, delay_buf = phase_attack(cfg, state, G, honest_G, byz,
+                                          engage_b=engaged)
+    promote = sybil_ban = None
+    probation_clean = state.probation_clean
+    if cfg.elastic:
+        probation_clean, promote, sybil_ban = sybil_mod.probation_step(
+            prob_b, sybil_mod.probation_check(G, honest_G, prob_b),
+            probation_clean, cfg.probation_steps)
+        same = honest_G is G
+        G = torch.where(active_b[:, None], G, 0.0)
+        honest_G = G if same else torch.where(active_b[:, None], honest_G,
+                                              0.0)
     seed, mprng_ban = phase_mprng(cfg, state, byz)
 
     # the sampled digest columns, a public fold of the step key; cell ==
@@ -718,6 +911,24 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
         accused_inc = torch.zeros_like(state.accused_count)
         new_active = active
 
+    # lifecycle: protocol bans (active rows) and Sybil bans (probation
+    # rows) are disjoint; promotions are clean probation rows. With a fixed
+    # peer set the new active mask is active * (1 - banned_now) exactly.
+    if sybil_ban is not None:
+        banned_now = banned_now | sybil_ban
+        reason = torch.where(sybil_ban, torch.full_like(reason, BAN_SYBIL),
+                             reason)
+        lifecycle = torch.where(
+            promote, torch.full_like(state.lifecycle, SLOT_ACTIVE),
+            state.lifecycle)
+    else:
+        lifecycle = state.lifecycle
+    new_lifecycle = torch.where(
+        banned_now, torch.full_like(lifecycle, SLOT_BANNED), lifecycle)
+    new_active = (new_lifecycle == SLOT_ACTIVE).to(torch.float32)
+    id_ban_step, id_ban_reason, id_accused = _identity_ledgers(
+        cfg, state, banned_now, reason, accused_inc)
+
     next_validator = _elect(cfg, _phase_key(state, 4), new_active)
     g_hat = bf.merge_parts(agg, cfg.d)
     # warm-start hygiene: carry the aggregate forward only after a step
@@ -737,6 +948,13 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
         last_checked=last_checked,
         col_checked=col_checked,
         delay_buf=delay_buf,
+        lifecycle=new_lifecycle,
+        slot_identity=state.slot_identity,
+        probation_clean=probation_clean,
+        events=state.events,
+        id_ban_step=id_ban_step,
+        id_ban_reason=id_ban_reason,
+        id_accused=id_accused,
     )
     out = StepOutputs(
         g_hat=g_hat, seed=seed, banned_now=banned_now, ban_reason_now=reason,
@@ -745,8 +963,36 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
         n_active=active.sum().to(torch.int32), validators=validator,
         clip_iters_used=int(iters_used),
         sampled_parts=(samp_mask if sampling else
-                       torch.ones((cfg.n,), dtype=torch.bool, device=device)))
+                       torch.ones((cfg.n,), dtype=torch.bool, device=device)),
+        lifecycle=new_lifecycle)
     return new_state, out
+
+
+def _identity_ledgers(cfg, state, banned_now, reason, accused_inc):
+    """The identity ledgers after a step: an identity's first ban writes
+    its step and reason once, and every occupied slot's accusations add
+    to its identity's count. Writes go through one spare entry past the
+    ledger, where every masked-out row lands, so no row is written into
+    another identity. Returns (id_ban_step, id_ban_reason, id_accused)."""
+    ident = state.slot_identity
+    idc = torch.clamp(ident, 0, cfg.n_ids - 1).long()
+    occupied = ident >= 0
+    first_ban = banned_now & occupied & (state.id_ban_step[idc] < 0)
+    spare = torch.full_like(idc, cfg.n_ids)
+
+    def scatter(ledger, mask, values, add=False):
+        buf = torch.cat([ledger, ledger[:1]])
+        index = torch.where(mask, idc, spare)
+        if add:
+            buf.scatter_add_(0, index, values.to(buf.dtype))
+        else:
+            buf.scatter_(0, index, values.to(buf.dtype))
+        return buf[:-1]
+
+    steps = torch.full_like(state.ban_step, state.step)
+    return (scatter(state.id_ban_step, first_ban, steps),
+            scatter(state.id_ban_reason, first_ban, reason),
+            scatter(state.id_accused, occupied, accused_inc, add=True))
 
 
 # ---------------------------------------------------------------------------

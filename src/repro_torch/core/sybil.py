@@ -1,29 +1,34 @@
-"""Slot lifecycle of elastic membership, host half (paper §3.3 / App. F).
+"""Sybil-gated admission and the slot lifecycle of elastic membership
+(paper §3.3 / App. F).
 
-Counterpart of the host-side part of ``repro.core.sybil``: the slot codes,
-:class:`MembershipEvent`, :class:`HostMembership` (the launch path's
-ledger: churn events between dispatches, probation spot-checks from the
-probe observations, identity-keyed bans) and :func:`parse_churn`, in pure
-Python and numpy. ``launch.train`` keeps one next to its weights vector,
-with or without ``--churn``.
+Counterpart of ``repro.core.sybil``, with its three call surfaces:
+
+* the engine's probation gate (:func:`probation_check`,
+  :func:`probation_step`), called from ``core.engine.protocol_step``: a
+  joining peer's public-seed work is spot-checked every step and never
+  enters the aggregate; one mismatch bans the identity, a clean window of
+  ``probation_steps`` checks promotes the slot;
+* :class:`HostMembership`, the launch path's ledger (churn events between
+  dispatches, probation spot-checks from the probe observations,
+  identity-keyed bans) and :func:`parse_churn`; ``launch.train`` keeps
+  one next to its weights vector, with or without ``--churn``;
+* :class:`SybilGate`, the host simulation of App. F's probation
+  economics, with the JAX package's numpy draws in the same order.
 
     vacant --join--> probation --clean window--> active
        ^                 |                          |
        +------leave------+-------leave--------------+
                          v                          v
                       banned <--accuse/checksum/audit
-
-Not ported yet: the in-engine membership (``probation_check``,
-``probation_step``, ``SybilGate``, the engine's ``phase_membership``),
-ROADMAP queue 1 item 11.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-# Slot lifecycle codes (HostMembership.lifecycle)
+# Slot lifecycle codes (ProtocolState.lifecycle / HostMembership.lifecycle)
 SLOT_VACANT = 0
 SLOT_PROBATION = 1
 SLOT_ACTIVE = 2
@@ -37,6 +42,37 @@ LIFECYCLE_NAMES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# The engine's probation gate
+# ---------------------------------------------------------------------------
+def probation_check(G, honest_G, probation_b):
+    """Validator spot-check of the probation rows' public-seed work: ``G``
+    is what each probation peer broadcast this step, ``honest_G`` what a
+    validator recomputing from the same public seed obtains. Commitment
+    equality is array equality, so a row that differs in any coordinate
+    fails; probation rows never enter the aggregate, so the compare is
+    over the raw payload, not the wire projection. Returns (n,) bool: the
+    probation rows caught this step."""
+    return torch.any(G != honest_G, dim=1) & probation_b
+
+
+def probation_step(probation_b, mismatch, clean, probation_steps: int):
+    """Advance the probation window one step. The clean counter resets on
+    a mismatch, adds one on a clean check, and is 0 outside probation.
+    Returns (new_clean, promote, sybil_ban): the counter; the probation
+    rows whose window of ``probation_steps`` clean checks completed this
+    step (active from the next round on); the probation rows banned now
+    (one strike)."""
+    ok = probation_b & ~mismatch
+    new_clean = torch.where(ok, clean + 1, torch.zeros_like(clean))
+    promote = ok & (new_clean >= probation_steps)
+    sybil_ban = mismatch & probation_b
+    return new_clean, promote, sybil_ban
+
+
+# ---------------------------------------------------------------------------
+# Host-side membership ledger (launch path)
+# ---------------------------------------------------------------------------
 @dataclass
 class MembershipEvent:
     step: int
@@ -223,3 +259,69 @@ def parse_churn(spec: str) -> list[MembershipEvent]:
             raise ValueError(f"bad churn kind {kind!r} (join|leave)")
         events.append(MembershipEvent(int(step), kind, int(slot)))
     return events
+
+
+# ---------------------------------------------------------------------------
+# App. F probation-economics simulation (host side)
+# ---------------------------------------------------------------------------
+@dataclass
+class JoinRequest:
+    peer_id: int
+    joined_at: int
+    clean_steps: int = 0
+    dishonest: bool = False  # simulation: does this identity compute?
+
+
+class SybilGate:
+    """The host simulation of App. F probation: pending identities submit
+    gradient commitments, spot-checked with probability ``check_prob``;
+    the probabilistic-economics model (expected probation cost ~ honest
+    work) beside the engine's every-step gate above. ``grad_fn(pid, t,
+    params, flipped)`` gives an identity's honest gradient (anything
+    numpy reads); the draws come from ``np.random.default_rng(seed)`` in
+    the JAX package's order, so the same seed admits and rejects the same
+    identities."""
+
+    def __init__(self, grad_fn, probation_steps: int = 20,
+                 check_prob: float = 0.5, seed: int = 0):
+        self.grad_fn = grad_fn
+        self.probation = probation_steps
+        self.check_prob = check_prob
+        self.rng = np.random.default_rng(seed)
+        self.pending: dict[int, JoinRequest] = {}
+        self.admitted: list[int] = []
+        self.rejected: list[int] = []
+
+    def request_join(self, peer_id: int, step: int, dishonest: bool = False):
+        self.pending[peer_id] = JoinRequest(peer_id, step, dishonest=dishonest)
+
+    def step(self, params, t):
+        """One probation round: each pending peer submits a gradient
+        commitment; admitted once ``probation`` clean (spot-checked)
+        rounds accumulate. Returns (admitted, rejected) so far."""
+        done = []
+        for pid, req in self.pending.items():
+            honest = np.asarray(self.grad_fn(pid, t, params, False),
+                                np.float32)
+            if req.dishonest:
+                # a Sybil identity with no compute behind it sends garbage
+                submitted = self.rng.normal(size=honest.shape).astype(
+                    np.float32)
+            else:
+                submitted = honest
+            if self.rng.random() < self.check_prob:
+                caught = bool(probation_check(
+                    torch.from_numpy(submitted)[None],
+                    torch.from_numpy(honest)[None],
+                    torch.ones((1,), dtype=torch.bool))[0])
+                if caught:
+                    self.rejected.append(pid)
+                    done.append(pid)
+                    continue
+            req.clean_steps += 1
+            if req.clean_steps >= self.probation:
+                self.admitted.append(pid)
+                done.append(pid)
+        for pid in done:
+            self.pending.pop(pid, None)
+        return list(self.admitted), list(self.rejected)

@@ -111,6 +111,11 @@ STAGED = 2
 # lands in slot j % slots, which the host reads only before it enqueues
 # iteration j + slots (the next write to that slot)
 ADAPTIVE_RING = 32
+# rings of d2 readings whose last finish may still be queued on the card,
+# each with the iteration of that finish: a ring's pinned block goes back
+# to torch's host cache only once that finish has landed (``_hold_ring``)
+_HELD_RINGS: list = []
+_HELD_LOCK = threading.Lock()
 
 
 class Geometry(NamedTuple):
@@ -649,6 +654,25 @@ class _D2Ring:
         return not bool((self.rows[j % self.slots] > tol2).any())
 
 
+def _release_landed():
+    """Drop the held rings whose last finish has landed (an event's query:
+    never a wait)."""
+    with _HELD_LOCK:
+        _HELD_RINGS[:] = [(r, j) for r, j in _HELD_RINGS if not r.done(j)]
+
+
+def _hold_ring(ring, last):
+    """Keep ``ring`` alive until iteration ``last``'s finish has landed.
+    The finishes write d2 through a raw mapped pointer, which records no
+    stream on the pinned block, so torch's host cache would hand the block
+    out again as soon as the ring were dropped, while finishes queued
+    behind the call still write to it. The finishes land in order, so the
+    last one's event covers them all."""
+    if last >= 0:
+        with _HELD_LOCK:
+            _HELD_RINGS.append((ring, last))
+
+
 def _adaptive_clip(k, tau, tol, max_iters, weights, v0, ring=_D2Ring):
     """The passes of the early-exit loop over a validated stack ``k``: a
     norm prologue at v0 (read in place), then up to ``max_iters``
@@ -658,9 +682,10 @@ def _adaptive_clip(k, tau, tol, max_iters, weights, v0, ring=_D2Ring):
     finish also writes d2 into a slot of ``ring``, pinned host memory,
     behind which an event is recorded; the host polls the landed slots
     (``adaptive_decide``) to stop enqueuing once every partition has
-    converged. The first step reads v0 and writes v (every partition steps
-    at iteration 0 while tol2 < +inf, the d2 it starts from), the rest run
-    in place. A tol2 of +inf or NaN freezes every partition before its
+    converged, and the ring outlives the call until its last finish has
+    landed (``_hold_ring``). The first step reads v0 and writes v (every
+    partition steps at iteration 0 while tol2 < +inf, the d2 it starts
+    from), the rest run in place. A tol2 of +inf or NaN freezes every partition before its
     first step: v0 (None: zeros) comes back, and nothing is launched.
     Each step enqueued is a launch.
     Returns (v (P, part), iters (P,) int32)."""
@@ -675,8 +700,9 @@ def _adaptive_clip(k, tau, tol, max_iters, weights, v0, ring=_D2Ring):
     k.sq_pass(v0, sq_part)  # prologue: the carried state for v0
     k.finish_weights(sq_part, w, tau, sq, cw, wsum)
     v = k.empty(k.P, k.part)
+    _release_landed()
     ring = ring(d2, min(max_iters, ADAPTIVE_RING))
-    seen = -1
+    seen, last = -1, -1
     for i in range(max_iters):
         go_on, seen = adaptive_decide(i, max_iters, ring.slots, seen,
                                       ring.done,
@@ -689,6 +715,8 @@ def _adaptive_clip(k, tau, tol, max_iters, weights, v0, ring=_D2Ring):
         k.finish_weights(sq_part, w, tau, sq, cw, d2_part=d2_part, d2=d2,
                          iters=iters, tol2=tol2, d2_seen=ring.slot(i))
         ring.push(i)
+        last = i
+    _hold_ring(ring, last)
     return v, iters
 
 

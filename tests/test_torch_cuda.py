@@ -625,6 +625,33 @@ def test_adaptive_loop_stops_early_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_adaptive_ring_is_not_reused_while_finishes_are_queued(cuda):
+    """The adaptive loop returns while its finishes are still queued on
+    the card, each writing d2 into the pinned ring through a mapped
+    pointer. A pinned buffer of the ring's size allocated and filled from
+    the host right after the call, with no sync, must keep its values
+    once the card has drained: the ring is held until its last finish has
+    landed, and released after that."""
+    n, P, part = 4, 4, 1 << 24  # 1 GiB a read: the card lags the host
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    g = torch.randn((n, P * part), generator=gen, device=cuda)
+    cap = kc.ADAPTIVE_RING
+    kc.butterfly_clip_adaptive(g, P, 1.0, 1e-30, 2, None, None)  # warm up
+    torch.cuda.synchronize()
+    kc._release_landed()
+    kc._adaptive_clip(kc._Stack(g, P), 1.0, 1e-30, cap, None, None)
+    probe = torch.empty((cap, P), dtype=torch.float32, pin_memory=True)
+    probe.numpy().fill(7.0)
+    held = len(kc._HELD_RINGS)
+    torch.cuda.synchronize()
+    assert held >= 1
+    assert (probe.numpy() == 7.0).all()
+    kc._release_landed()
+    assert kc._HELD_RINGS == []
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tol", [math.inf, 2e19])
 def test_adaptive_loop_at_unbounded_tol_on_card(cuda, tol):
     """A tolerance whose float32 square is +inf freezes every partition

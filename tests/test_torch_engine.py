@@ -182,14 +182,21 @@ def test_scanned_steps_ban_steps_equal_jax(attack, spec):
 
 
 def test_engine_config_rejects_unported_branches():
-    """The branch this port still lacks raises, naming its ROADMAP item:
-    elastic membership. The full-vector baselines are ported and resolve
-    to non-verifiable specs, as in JAX. Hierarchical groups and sampled
-    audits are ported and validated as in JAX: a bad audit_k or a group
-    count that does not split n into groups of >= 2 raises ValueError."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        teng.EngineConfig(n=4, d=8, n_events=2)
-    for kw in (dict(audit_k=0), dict(groups=3)):
+    """Every branch is ported and validated as in JAX. Elastic membership
+    (n_events > 0) builds, with the JAX package's identity capacity; a
+    negative n_events or a probation window under one step raises. The
+    full-vector baselines resolve to non-verifiable specs. Hierarchical
+    groups and sampled audits: a bad audit_k or a group count that does
+    not split n into groups of >= 2 raises ValueError."""
+    for kw in (dict(n_events=2), dict(n_events=2, probation_steps=3,
+                                      max_identities=9)):
+        t, j = teng.EngineConfig(n=4, d=8, **kw), jeng.EngineConfig(n=4, d=8,
+                                                                     **kw)
+        assert t.elastic and j.elastic and t.n_ids == j.n_ids
+        assert t.probation_steps == j.probation_steps
+    assert not teng.EngineConfig(n=4, d=8).elastic
+    for kw in (dict(audit_k=0), dict(groups=3), dict(n_events=-1),
+               dict(n_events=2, probation_steps=0)):
         with pytest.raises(ValueError):
             jeng.EngineConfig(n=4, d=8, **kw)
         with pytest.raises(ValueError):

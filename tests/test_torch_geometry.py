@@ -8,8 +8,10 @@ aligned. The kernels themselves run on the card only
 (``tests/test_torch_cuda.py``); here a recording stand-in for the built
 library takes their launches."""
 import ctypes
+import gc
 import inspect
 import math
+import weakref
 
 import numpy as np
 import pytest
@@ -428,6 +430,59 @@ def test_adaptive_loop_enqueues_without_host_reads(monkeypatch, max_iters,
     assert [u[:2] for u in updates] == (
         [(v0_ptr, v.data_ptr())] + [(v.data_ptr(), v.data_ptr())] * (m - 1)
         if m else [])
+
+
+class _LandingRing(_FakeRing):
+    """A stand-in ring whose readings (and the event behind its last
+    finish) report done only once ``landed`` is set."""
+
+    def __init__(self, calls):
+        super().__init__(calls, lag=0)
+        self.landed = False
+
+    def done(self, j):
+        return self.landed and super().done(j)
+
+
+def test_adaptive_ring_outlives_the_call_until_its_last_finish_lands(
+        monkeypatch):
+    """The ring's pinned block is written by finishes still queued when
+    the call returns, so the loop holds the ring past the call: it stays
+    alive while the event behind its last finish reports not done (across
+    further calls), and is released by the first call after it reports
+    done; a call that enqueued nothing holds nothing."""
+    calls = []
+    monkeypatch.setattr(build, "load", lambda name="centered_clip":
+                        _AdaptiveCard(calls, [None, None]))
+    monkeypatch.setattr(kc, "_stream", lambda device: 0)
+    monkeypatch.setattr(kc, "_HELD_RINGS", [])
+    g = _stack(4, 2 * 4096, 2)
+
+    def call(max_iters=6):
+        ring = _LandingRing(calls)
+        kc._adaptive_clip(kc._Stack(g, 2), 1.0, 1e-4, max_iters, None, None,
+                          ring=ring)
+        return weakref.ref(ring)
+
+    first = call()
+    gc.collect()
+    assert first() is not None and first().pushed == 6
+    assert kc._HELD_RINGS == [(first(), 5)]  # held behind iteration 5
+    second = call()  # the first's last finish has not landed: both held
+    gc.collect()
+    assert first() is not None and second() is not None
+    first().landed = True
+    third = call()  # made after the first landed: the first goes
+    gc.collect()
+    assert first() is None
+    assert second() is not None and third() is not None
+    second().landed = third().landed = True
+    kc._release_landed()
+    gc.collect()
+    assert second() is None and third() is None and kc._HELD_RINGS == []
+    none = call(max_iters=0)
+    gc.collect()
+    assert none() is None and kc._HELD_RINGS == []
 
 
 @pytest.mark.parametrize("cold", [False, True])
