@@ -92,6 +92,16 @@ Phases, each printing its own line:
      16 peers, 9-15 sign-flipping, lamb(2e-3), tau 2, clip_lambda 20, 40
      iterations, the host loop; #1 once a step), then #1 at its (16, d')
      stack with 40 iterations held against its plain version and timed;
+     (p) the crash drill, ``repro_torch.launch.train`` on launch path
+     (j)'s spec over 8 steps in chunks of 2 (``--scan-steps 2``), the
+     attacker's slot leaving at step 4 and a fresh identity joining it at
+     6: A uninterrupted with ``--checkpoint``, B ``--checkpoint-dir D
+     --halt-at 4``, C ``--checkpoint-dir D --resume --checkpoint``; B's
+     files hold B's state at the halt bit for bit, C's losses, clip
+     iterations, bans, SUMMARY, final params, momentum, carry and
+     checkpoint file equal A's bit for bit, and #11 launches on B and C
+     what A launched over the same steps; the file sizes, save and load
+     seconds;
   10. the launches of every kernel per path.
 
 Before the last line it prints the card's name and power limit and a JSON
@@ -1495,6 +1505,179 @@ def run_section_4_2(label, stats):
     return counts
 
 
+def bits(t):
+    """A tensor's bits as an integer tensor of its width on the CPU (bit
+    equality, not value equality: -0.0, NaN)."""
+    t = t.detach().cpu().contiguous()
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    return t
+
+
+def same_bits(xs, ys):
+    xs, ys = list(xs), list(ys)
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(bits(x), bits(y)) for x, y in zip(xs, ys))
+
+
+# phase (p): launch path (j)'s spec over 8 steps in chunks of 2, with a
+# leave of the attacker's slot at the halt and a fresh identity joining it
+# two steps later
+DRILL = ["--arch", "albert-large", "--mesh", "4x1", "--steps", "8",
+         "--scan-steps", "2", "--attack", "sign_flip", "--byzantine", "3",
+         "--tau", "1", "--clip-iters", "20", "--aggregator",
+         "butterfly_clip:warm_start=true,adaptive_tol=1e-4", "--churn",
+         "leave@4:3,join@6:3"]
+DRILL_HALT = 4
+
+
+def run_drill(label, card):
+    """The crash drill through ``repro_torch.launch.train``'s entry point
+    at full width, three legs in this process: A uninterrupted (8 steps,
+    ``--checkpoint``), B ``--checkpoint-dir D --halt-at 4``, C
+    ``--checkpoint-dir D --resume --checkpoint``. Checks: B's pair loads
+    back bit for bit as B's params, momentum, carry and membership at the
+    halt; C's losses, CenteredClip iterations, bans and SUMMARY equal A's
+    over steps 4-7, its final params, momentum and carry and its
+    ``--checkpoint`` file A's bit for bit; #11's launches on B and on C
+    equal A's over the same steps, nothing but #3 and #11 launches, #3
+    held by ``hold_adaptive``. The files go under ``build/`` and are
+    removed. Returns each leg's launch counts."""
+    import shutil
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.core.sybil import HostMembership
+    from repro_torch.kernels import centered_clip as kc
+    from repro_torch.launch import train as lt
+
+    work = os.path.join(ROOT, "build", "chip_smoke_drill")
+    shutil.rmtree(work, ignore_errors=True)
+    ck_dir = os.path.join(work, "D")
+    a_path, c_path = (os.path.join(work, f"{x}.msgpack") for x in "ac")
+
+    def leg(tag, extra, boundaries):
+        """One leg from zeroed launch counts; the counts at each chunk
+        boundary in ``boundaries`` (read when every rank has finished the
+        chunk) and at the end."""
+        at = {}
+
+        def on_chunk_done(next_step):
+            if next_step in boundaries:
+                at[next_step] = dict(kc.LAUNCHES)
+
+        args = lt.build_parser().parse_args(DRILL + extra)
+        kc.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = lt.run(args, on_chunk_done=on_chunk_done)
+        wall = time.perf_counter() - t0
+        counts = dict(kc.LAUNCHES)
+        check(all(math.isfinite(x) for x in rec["losses"]),
+              f"{label} {tag}: losses {rec['losses']}")
+        others = {k: v for k, v in counts.items()
+                  if v and k not in ("verify_tables", "adaptive_clip_step")}
+        check(not others, f"{label} {tag}: other kernels launched {others}")
+        hold_adaptive(f"{label} {tag}", counts["adaptive_clip_step"],
+                      [i for step in rec["clip_iters"] for i in step], 20)
+        print(f"{label} {tag}: {wall:.1f} s; losses "
+              f"{[round(x, 4) for x in rec['losses']]}; bans "
+              f"{rec['ban_steps']}; clip iters {rec['clip_iters']}; "
+              f"launches {counts}; save s "
+              f"{[round(x, 3) for x in rec['save_seconds']]}; load s "
+              f"{[round(x, 3) for x in rec['load_seconds']]}", flush=True)
+        return rec, at, counts
+
+    a, a_at, a_counts = leg("A (uninterrupted)", ["--checkpoint", a_path],
+                            (DRILL_HALT, 8))
+    b, b_at, b_counts = leg(
+        "B (halt)", ["--checkpoint-dir", ck_dir, "--halt-at",
+                     str(DRILL_HALT)], (DRILL_HALT,))
+    check(b["halted"] == DRILL_HALT, f"{label}: B halted at {b['halted']}")
+    check(b["losses"] == a["losses"][:DRILL_HALT],
+          f"{label}: B's losses {b['losses']} against A's")
+
+    # B's pair on disk is B's state at the halt, bit for bit
+    state_path = os.path.join(ck_dir, "state.msgpack")
+    mem_path = os.path.join(ck_dir, "membership.msgpack")
+    t0 = time.perf_counter()
+    flat, step, meta = load_checkpoint(state_path)
+    load_s = time.perf_counter() - t0
+    check(step == DRILL_HALT and meta["arch"] == "albert-large",
+          f"{label}: state file at step {step}, meta {meta}")
+
+    def part(prefix):
+        return [t for k, t in flat.items() if k.startswith(prefix + "/")]
+
+    def flat_of(leaves):
+        return torch.cat([t.reshape(-1) for t in leaves])
+
+    st = b["state"]
+    check(same_bits(part("params"), tree_leaves(st["params"])),
+          f"{label}: the state file's params are not B's at the halt")
+    check(same_bits([flat_of(part("opt/m"))], [st["opt"]["m"]]),
+          f"{label}: the state file's momentum is not B's at the halt")
+    check(same_bits([flat_of(part("v_prev"))], [st["v_prev"]]),
+          f"{label}: the state file's carry is not B's at the halt")
+    mem_tree, mem_step, _ = load_checkpoint(mem_path)
+    restored = HostMembership(4).restore_tree(mem_tree).summary()
+    check(mem_step == DRILL_HALT and all(
+        restored[k] == b["summary"][k] for k in restored),
+        f"{label}: membership file {restored} at step {mem_step}, B "
+        f"{b['summary']}")
+    sizes = {os.path.basename(p): os.path.getsize(p)
+             for p in (state_path, mem_path)}
+    del flat, st, b["state"]
+
+    c, _, c_counts = leg(
+        "C (resume)", ["--checkpoint-dir", ck_dir, "--resume",
+                       "--checkpoint", c_path], ())
+    for key, want, got in (
+            ("losses", a["losses"][DRILL_HALT:], c["losses"]),
+            ("clip_iters", a["clip_iters"][DRILL_HALT:], c["clip_iters"]),
+            ("ban_steps", a["ban_steps"], c["ban_steps"]),
+            ("summary", a["summary"], c["summary"])):
+        check(want == got, f"{label}: C's {key} {got} against A's {want}")
+    check(len(a["summary"]["banned_identities"]) == 2,
+          f"{label}: expected the attacker and its rejoin banned: "
+          f"{a['summary']}")
+    for key in ("params", "opt", "v_prev"):
+        check(same_bits(tree_leaves(a["state"][key]),
+                        tree_leaves(c["state"][key])),
+              f"{label}: C's final {key} differ from A's")
+    with open(a_path, "rb") as fa, open(c_path, "rb") as fc:
+        check(fa.read() == fc.read(),
+              f"{label}: C's --checkpoint file differs from A's")
+    sizes[os.path.basename(a_path)] = os.path.getsize(a_path)
+
+    # #11 once per rank and step on every leg: B's and C's counts are A's
+    # over the same steps
+    a_first = a_at[DRILL_HALT]["verify_tables"]
+    a_second = a_at[8]["verify_tables"] - a_first
+    check(a_counts["verify_tables"] == a_at[8]["verify_tables"],
+          f"{label}: A launched after its last chunk")
+    check(b_counts["verify_tables"] == a_first
+          and c_counts["verify_tables"] == a_second,
+          f"{label}: #11 launches A {a_first} + {a_second}, B "
+          f"{b_counts['verify_tables']}, C {c_counts['verify_tables']}")
+    a3 = a_at[DRILL_HALT]["adaptive_clip_step"]
+    print(f"{label}: {card}; files {sizes} bytes; saves (s) B "
+          f"{b['save_seconds']}, C {c['save_seconds']} (the last the "
+          f"--checkpoint file); C's resume read {c['load_seconds']} s on "
+          f"rank 0, the state file read again {load_s:.3f} s; #11 A "
+          f"{a_first} + {a_second} = B "
+          f"{b_counts['verify_tables']} + C {c_counts['verify_tables']}; "
+          f"#3 A {a3} + {a_counts['adaptive_clip_step'] - a3}, B "
+          f"{b_counts['adaptive_clip_step']}, C "
+          f"{c_counts['adaptive_clip_step']}: resumed bit for bit",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"drill_uninterrupted": a_counts, "drill_halt": b_counts,
+            "drill_resume": c_counts}
+
+
 def run_toy(label, argv, banned, launches):
     """The §4.1 toy classifier through ``train_byzantine``'s default path
     (the host loop, no --model) with the launch counts set to 0 just
@@ -1677,6 +1860,9 @@ def main():
         "a new key")
     paths["section_4_2"] = run_section_4_2(
         "phase 9 (o) section 4.2: albert_pretrain --full", stats)
+    # the crash drill: halt and resume bit for bit on launch path (j)
+    paths.update(run_drill("phase 9 (p) crash drill: " + " ".join(DRILL),
+                           card))
     print("phase 10: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
@@ -1706,6 +1892,11 @@ def main():
         if name == "adaptive_clip_step":
             # the iterations the path's calls stepped, beside the launches
             row["iters"] = sum(adaptive_sum["clip_iters"])
+        if name in ("verify_tables", "adaptive_clip_step"):
+            # the crash drill's legs: A uninterrupted, B halted, C resumed
+            row["launches_drill"] = {
+                leg: paths[f"drill_{leg}"][name]
+                for leg in ("uninterrupted", "halt", "resume")}
         if name in PATH_CODEC:
             row["codec"] = PATH_CODEC[name]
             row["by_codec"] = st["by_codec"]

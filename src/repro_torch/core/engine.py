@@ -316,6 +316,48 @@ def init_state(cfg: EngineConfig, seed: int = 0, events=None, vacant=(),
     )
 
 
+def state_to_tree(cfg: EngineConfig, state: ProtocolState) -> ProtocolState:
+    """``state`` in the JAX package's layout, the tree its checkpoints hold
+    (``checkpoint.save_checkpoint``): ``step`` an int32 0-d array, ``key``
+    the two words as uint32 (``jax.random.PRNGKey``), and ``delay_buf`` the
+    reference's float32 ``(1, n, d)`` zeros where the port holds ``None``
+    (no delayed-gradient attack). The other leaves are the state's own."""
+    delay_buf = state.delay_buf
+    if delay_buf is None:
+        delay_buf = np.zeros((cfg.delay_depth, cfg.n, cfg.d), np.float32)
+    return state._replace(
+        step=np.asarray(state.step, np.int32),
+        key=state.key.to("cpu").numpy().astype(np.uint32),
+        delay_buf=delay_buf)
+
+
+def state_from_tree(cfg: EngineConfig, tree, device=None) -> ProtocolState:
+    """The inverse of :func:`state_to_tree`: a tree of the JAX package's
+    layout (e.g. ``load_checkpoint(path, state_to_tree(cfg, example))``)
+    as the port's state on ``device`` (CUDA unless told otherwise; the
+    event table stays on the host). ``delay_buf`` is dropped unless
+    ``cfg`` has the delayed-gradient attack."""
+    device = resolve_device(device)
+
+    def dev(x):
+        return torch.as_tensor(x).to(device)
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu().numpy()
+        return np.asarray(x)
+
+    key = host(tree.key).astype(np.uint32).astype(np.int64)
+    return ProtocolState(**{
+        f: dev(getattr(tree, f)) for f in ProtocolState._fields
+        if f not in ("step", "key", "delay_buf", "events")},
+        step=int(host(tree.step)),
+        key=torch.from_numpy(key).to(device),
+        delay_buf=(dev(tree.delay_buf)
+                   if cfg.attack == "delayed_gradient" else None),
+        events=torch.as_tensor(tree.events).to("cpu"))
+
+
 # ---------------------------------------------------------------------------
 # Phase functions
 # ---------------------------------------------------------------------------

@@ -94,7 +94,7 @@ class HostMembership:
     construction.
 
     The whole state round-trips through :meth:`to_tree` /
-    :meth:`from_tree` for checkpointed recovery (``--checkpoint-dir`` /
+    :meth:`restore_tree` for checkpointed recovery (``--checkpoint-dir`` /
     ``--resume``).
     """
 

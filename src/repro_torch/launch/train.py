@@ -27,23 +27,36 @@ run, so ``--use-pallas`` is accepted and changes nothing.
       --mesh 4x1 --steps 4 --attack sign_flip --byzantine 3 \\
       --aggregator butterfly_clip:warm_start=true,adaptive_tol=1e-4
 
+Crash recovery, with the JAX launcher's rules and lines: on the chunked
+path (``--scan-steps``, or a warm-started spec) ``--checkpoint-dir DIR``
+writes ``DIR/state.msgpack`` (params, optimizer state, the warm-start
+carry) and ``DIR/membership.msgpack`` (the membership ledger) at every
+chunk boundary, ``--resume`` continues from them bit for bit, and
+``--halt-at STEP`` stops after the first boundary at or past STEP (the
+crash drill). ``--checkpoint PATH`` writes the params and optimizer state
+after the last step. The files are the JAX package's format
+(``repro_torch.checkpoint``): params, optimizer state and membership
+load in either package; the carry is stored as float32 leaves of the
+params' shapes (the port's flat float32 carry, bit for bit).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch albert-large \\
+      --reduced --device cpu --mesh 4x1 --steps 4 --scan-steps 2 \\
+      --checkpoint-dir ck --halt-at 2   # then the same with --resume
+
 Not ported yet: a model axis > 1, the pod axis and ``--seq-parallel``
-(ROADMAP queue 1 item 14's remainder), and checkpointing
-(``--checkpoint-dir``, ``--resume``, ``--halt-at``, ``--checkpoint``;
-item 12): each raises ``NotImplementedError``.
+(ROADMAP queue 1 item 14's remainder): each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 import warnings
 
 import numpy as np
 import torch
-
-CHECKPOINT_ITEM = "ROADMAP queue 1 item 12 (checkpoint/checkpoint.py)"
-
 
 def resolve_cli_aggregator(text, warm_start_clip=False, adaptive_clip=None):
     """Parse ``--aggregator NAME[:k=v,...]`` and fold the deprecated
@@ -138,11 +151,21 @@ def build_parser():
                     help="membership events KIND@STEP:SLOT, comma-separated "
                          "(kind join|leave), e.g. 'leave@6:1,join@8:1'")
     ap.add_argument("--probation-steps", type=int, default=3)
-    ap.add_argument("--checkpoint-dir", default="", help="not ported yet")
-    ap.add_argument("--resume", action="store_true", help="not ported yet")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="crash-recovery checkpoints: params, optimizer "
+                         "state, the warm-start carry and the membership "
+                         "ledger at every chunk boundary (atomic writes). "
+                         "Requires the chunked path (--scan-steps)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the checkpoints in --checkpoint-dir "
+                         "(same flags), bit for bit")
     ap.add_argument("--halt-at", type=int, default=None, metavar="STEP",
-                    help="not ported yet")
-    ap.add_argument("--checkpoint", default="", help="not ported yet")
+                    help="crash drill: stop after the first chunk-boundary "
+                         "checkpoint at or past STEP (requires "
+                         "--checkpoint-dir)")
+    ap.add_argument("--checkpoint", default="", metavar="PATH",
+                    help="write the params and optimizer state here after "
+                         "the last step")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -161,13 +184,6 @@ def build_parser():
 
 
 def _refuse_unported(args):
-    for flag, on in (("--checkpoint-dir", args.checkpoint_dir),
-                     ("--resume", args.resume),
-                     ("--halt-at", args.halt_at is not None),
-                     ("--checkpoint", args.checkpoint)):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: checkpointing is not ported yet; {CHECKPOINT_ITEM}")
     if args.seq_parallel:
         from repro_torch.launch.mesh import NOT_PORTED
 
@@ -189,32 +205,53 @@ def audit_offenders(verif, tol=1e-5):
     return bad
 
 
-def run(args, *, breakdown=False, on_steps_done=None, params0=None):
+def run(args, *, breakdown=False, on_steps_done=None, on_chunk_done=None,
+        params0=None):
     """Run the launcher for parsed ``args``; prints as the JAX launcher
     does (from rank 0). Returns rank 0's record: ``summary`` (the SUMMARY
-    line's object), ``losses`` (every step's), ``ban_steps`` ({slot: step}),
-    ``seconds`` (host seconds of each step or chunk, device synchronized),
-    ``clip_iters`` (every step's CenteredClip budget per peer).
+    line's object), ``losses`` (every step run here), ``ban_steps``
+    ({slot: step}), ``seconds`` (host seconds of each step or chunk,
+    device synchronized), ``clip_iters`` (every step's CenteredClip budget
+    per peer), ``state`` (the final ``params``, ``opt`` state and flat
+    ``v_prev`` carry), ``save_seconds`` and ``load_seconds`` (of each
+    checkpoint written or read, on rank 0) and ``halted`` (the checkpointed
+    step a ``--halt-at`` stopped at, else None).
 
     ``breakdown``: after the last step, run one more step with a
     :class:`~repro_torch.launch.steps.PartClock` and add its seconds by
     part as ``parts``; ``on_steps_done()`` is called once, on rank 0, when
     every rank has finished the main steps and before that extra step.
-    ``params0``: the initial parameter tree (default: the model's
-    ``init_params`` from key 0), e.g. weights carried from the JAX
-    package."""
+    ``on_chunk_done(next_step)`` is called on rank 0 after each chunk of
+    the chunked path, when every rank has finished it. ``params0``: the
+    initial parameter tree (default: the model's ``init_params`` from key
+    0), e.g. weights carried from the JAX package."""
     from repro_torch import resolve_device
     from repro_torch.launch import collectives
     from repro_torch.launch.mesh import parse_mesh
 
     _refuse_unported(args)
     mesh = parse_mesh(args.mesh)
+    agg_spec = resolve_cli_aggregator(args.aggregator, args.warm_start_clip,
+                                      args.adaptive_clip)
+    warm = bool(agg_spec.warm_startable and agg_spec.get("warm_start", False))
+    n_scan = max(args.scan_steps, 1 if warm else 0)
+    if (args.checkpoint_dir or args.resume) and not n_scan:
+        build_parser().error("--checkpoint-dir/--resume require --scan-steps "
+                             "(checkpoints are cut at scan-chunk boundaries)")
+    if args.resume and not args.checkpoint_dir:
+        build_parser().error("--resume reads the checkpoints in "
+                             "--checkpoint-dir, so it requires it")
+    if args.halt_at is not None and not args.checkpoint_dir:
+        build_parser().error("--halt-at exits after a boundary checkpoint, so "
+                             "it requires --checkpoint-dir")
     device = resolve_device(args.device)
     n = mesh.n_peers
+    opts = dict(breakdown=breakdown, on_steps_done=on_steps_done,
+                on_chunk_done=on_chunk_done, params0=params0)
     if args.backend == "local":
         results = collectives.run_local(
-            n, lambda group: _rank_main(args, group, mesh, device, breakdown,
-                                        on_steps_done, params0),
+            n, lambda group: _rank_main(args, group, mesh, device, agg_spec,
+                                        n_scan, **opts),
             device=device, timeout=args.timeout)
         return results[0]
     if not args.dist_init:
@@ -224,15 +261,16 @@ def run(args, *, breakdown=False, on_steps_done=None, params0=None):
     group = collectives.init_dist(args.dist_init, n, args.rank,
                                   device=device, timeout=args.timeout)
     try:
-        return _rank_main(args, group, mesh, device, breakdown,
-                          on_steps_done, params0)
+        return _rank_main(args, group, mesh, device, agg_spec, n_scan, **opts)
     finally:
         torch.distributed.destroy_process_group()
 
 
-def _rank_main(args, group, mesh, device, breakdown, on_steps_done,
-               params0):
-    """One rank's whole run (every rank runs it; rank 0 prints)."""
+def _rank_main(args, group, mesh, device, agg_spec, n_scan, *, breakdown,
+               on_steps_done, on_chunk_done, params0):
+    """One rank's whole run (every rank runs it; rank 0 prints and writes
+    the checkpoints)."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.core import butterfly as bf
     from repro_torch.core import prng
     from repro_torch.core.flatten import (
@@ -256,11 +294,7 @@ def _rank_main(args, group, mesh, device, breakdown, on_steps_done,
     n_peers = mesh.n_peers
     model = lm_model(args.arch, reduced=args.reduced)
     opt = sgd(args.lr, momentum=0.9, nesterov=True)
-    agg_spec = resolve_cli_aggregator(args.aggregator, args.warm_start_clip,
-                                      args.adaptive_clip)
-    warm = bool(agg_spec.warm_startable and agg_spec.get("warm_start", False))
     cfg = model.cfg
-    n_scan = max(args.scan_steps, 1 if warm else 0)
     # the chunked path generates its batches on the device by default; host
     # batches are generated on the CPU and copied (the same bits)
     device_data = bool(n_scan) and not args.host_data
@@ -290,6 +324,22 @@ def _rank_main(args, group, mesh, device, breakdown, on_steps_done,
                                           for t in tree_leaves(params0)])
     boundary = FlatBoundary(params)
     opt_state = opt.init(boundary.flatten(params))
+
+    def f32_tree(flat):
+        """A flat (d,) float32 vector as float32 views of the params'
+        shapes: the JAX package's tree of the optimizer state (and here of
+        the carry) in a file."""
+        o = boundary.offsets
+        return tree_unflatten(params, [
+            flat[o[i]:o[i + 1]].view(shape)
+            for i, shape in enumerate(boundary.shapes)])
+
+    def file_state(params, opt_state, v_prev=None):
+        tree = {"params": params, "opt": {"m": f32_tree(opt_state["m"])}}
+        if v_prev is not None:
+            tree["v_prev"] = f32_tree(v_prev)
+        return tree
+
     byz_mask = torch.tensor([1.0 if i in byz else 0.0 for i in range(n_peers)],
                             device=device)
     # every peer starts active, the Byzantine ones too: bans come from the
@@ -316,6 +366,7 @@ def _rank_main(args, group, mesh, device, breakdown, on_steps_done,
         f"backend={args.backend} device={device.type}")
     attacked = args.attack != "none" or args.agg_attack
     losses, seconds, clip_iters = [], [], []
+    save_seconds, load_seconds = [], []
 
     def sync():
         if device.type == "cuda":
@@ -381,8 +432,37 @@ def _rank_main(args, group, mesh, device, breakdown, on_steps_done,
     t0 = time.time()
     final_loss = float("nan")
     v_prev = torch.zeros((boundary.d,), device=device) if n_scan else None
+    halted = None
     if args.defense == "btard" and n_scan:
-        for chunk in range(0, args.steps, n_scan):
+        start_step = 0
+        state_path = mem_path = ""
+        if args.checkpoint_dir:
+            os.makedirs(args.checkpoint_dir, exist_ok=True)
+            state_path = os.path.join(args.checkpoint_dir, "state.msgpack")
+            mem_path = os.path.join(args.checkpoint_dir, "membership.msgpack")
+        if args.resume:  # every rank reads the pair
+            t = time.perf_counter()
+            state, start_step, ck_meta = load_checkpoint(
+                state_path, file_state(params, opt_state, v_prev))
+            params = state["params"]
+            opt_state = {"m": boundary.flatten(state["opt"]["m"])}
+            v_prev = boundary.flatten(state["v_prev"])
+            mem_tree, mem_step, _ = load_checkpoint(mem_path)
+            if mem_step != start_step:
+                raise RuntimeError(
+                    f"checkpoint pair out of sync: state@{start_step} vs "
+                    f"membership@{mem_step}: a crash mid-save; rerun "
+                    "without --resume or restore the previous pair")
+            mem.restore_tree(mem_tree)
+            if start_step % n_scan:
+                raise RuntimeError(
+                    f"resume step {start_step} is not a multiple of "
+                    f"--scan-steps {n_scan}; use the original chunking")
+            sync()
+            load_seconds.append(time.perf_counter() - t)
+            say(f"resumed at step {start_step} "
+                f"(banned={mem.banned_slots()}, arch={ck_meta.get('arch')})")
+        for chunk in range(start_step, args.steps, n_scan):
             idxs = list(range(chunk, min(chunk + n_scan, args.steps)))
             t = time.perf_counter()
             metrics = chunk_step(idxs)
@@ -393,6 +473,25 @@ def _rank_main(args, group, mesh, device, breakdown, on_steps_done,
             if chunk % max(args.log_every, 1) == 0:
                 say(f"step {idxs[-1]:4d} loss={final_loss:.4f}"
                     f" checksum={float(metrics['checksum_max'][-1]):.2e}")
+            next_step = idxs[-1] + 1
+            if state_path and lead:
+                t = time.perf_counter()
+                save_checkpoint(
+                    state_path, file_state(params, opt_state, v_prev),
+                    step=next_step,
+                    meta={"arch": args.arch,
+                          "aggregator": agg_spec.canonical()})
+                save_checkpoint(mem_path, mem.to_tree(), step=next_step)
+                save_seconds.append(time.perf_counter() - t)
+            if on_chunk_done is not None:
+                group.barrier()
+                if lead:
+                    on_chunk_done(next_step)
+            if (state_path and args.halt_at is not None
+                    and next_step >= args.halt_at):
+                group.barrier()  # rank 0's pair is on disk
+                halted = next_step
+                break
     else:
         for step in range(args.steps):
             t = time.perf_counter()
@@ -404,17 +503,32 @@ def _rank_main(args, group, mesh, device, breakdown, on_steps_done,
             if step % args.log_every == 0:
                 say(f"step {step:4d} loss={final_loss:.4f}{extra}")
     dt = time.time() - t0
-    say(f"done: {args.steps} steps in {dt:.1f}s "
-        f"({dt / max(args.steps, 1):.2f}s/step)")
+    if halted is None:
+        say(f"done: {args.steps} steps in {dt:.1f}s "
+            f"({dt / max(args.steps, 1):.2f}s/step)")
+    else:
+        say(f"halt requested at step {args.halt_at}: checkpointed step "
+            f"{halted}, exiting (resume with --resume)")
     summary = mem.summary()
     summary.update(byzantine=sorted(byz), final_loss=final_loss,
-                   steps_done=int(args.steps))
+                   steps_done=int(args.steps if halted is None else halted))
     say("SUMMARY " + json.dumps(summary))
+    if args.checkpoint and halted is None and lead:
+        t = time.perf_counter()
+        save_checkpoint(args.checkpoint, file_state(params, opt_state),
+                        step=args.steps, meta={"arch": args.arch})
+        save_seconds.append(time.perf_counter() - t)
+        say("checkpoint saved:", args.checkpoint)
     record = {"summary": summary, "losses": losses, "seconds": seconds,
-              "clip_iters": list(clip_iters),
+              "clip_iters": list(clip_iters), "halted": halted,
+              "save_seconds": save_seconds, "load_seconds": load_seconds,
+              "state": {"params": params, "opt": opt_state,
+                        "v_prev": v_prev},
               "ban_steps": {s: mem.banned_identities[int(i)]
                             for s, i in enumerate(mem.slot_identity)
                             if int(i) in mem.banned_identities}}
+    if halted is not None:
+        return record
     group.barrier()
     if on_steps_done is not None and lead:
         sync()

@@ -16,7 +16,8 @@ decided on the card, gives the bits of the loop that read ||dv||^2 on
 the host before every iteration; the wire passes' staged body (#7, #8)
 gives its float32 twins' bits; verified:mean's one pass (#5, #8) gives
 the digests a validator recomputes (#6, #9) against its v, bit for bit.
-Marked
+A bf16 and f32 tree on the card round-trips through a checkpoint bit for
+bit, onto its example's device. Marked
 ``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
@@ -757,3 +758,41 @@ def test_mean_digest_tables_are_the_validators_recompute_bitwise_on_card(
     torch.testing.assert_close(
         want5[0], kc.mean_digest_fused_plain(g, P, z, w)[0], rtol=1e-5,
         atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trips_cuda_trees_bitwise_onto_the_examples_device(
+        cuda, tmp_path):
+    """A bf16 and f32 tree on the card (the launcher's params, momentum and
+    carry) saves and loads back bit for bit, each leaf on its example's
+    device, bf16 through its 16 bits; a CPU example restores on the CPU."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    tree = {"params": {"emb": torch.randn((1000, 33), generator=gen,
+                                          device=cuda).to(torch.bfloat16),
+                       "blocks": [torch.randn((7, 5), generator=gen,
+                                              device=cuda)]},
+            "opt": {"m": torch.randn((70_001,), generator=gen, device=cuda)},
+            "step": torch.tensor(3, dtype=torch.int32, device=cuda)}
+    path = str(tmp_path / "ck.msgpack")
+    save_checkpoint(path, tree, step=4, meta={"arch": "x"})
+    zeros = lambda t: torch.zeros_like(t)  # noqa: E731
+    example = {"params": {"emb": zeros(tree["params"]["emb"]),
+                          "blocks": [zeros(tree["params"]["blocks"][0])]},
+               "opt": {"m": zeros(tree["opt"]["m"])},
+               "step": zeros(tree["step"])}
+    got, step, meta = load_checkpoint(path, example)
+    assert step == 4 and meta == {"arch": "x"}
+    pairs = [(got["params"]["emb"], tree["params"]["emb"]),
+             (got["params"]["blocks"][0], tree["params"]["blocks"][0]),
+             (got["opt"]["m"], tree["opt"]["m"]), (got["step"], tree["step"])]
+    for a, b in pairs:
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+    on_cpu, _, _ = load_checkpoint(path, {"opt": {"m": torch.zeros(70_001)}})
+    assert on_cpu["opt"]["m"].device.type == "cpu"
+    assert torch.equal(on_cpu["opt"]["m"], tree["opt"]["m"].cpu())

@@ -1,7 +1,9 @@
 """The port stands alone: nothing under src/repro_torch (nor chip_smoke.py)
-imports jax or the JAX package, every port module imports with jax
-blocked, and the entry points refuse to run without a CUDA device unless
-the caller asks for the CPU."""
+imports jax or the JAX package, nor msgpack or ml_dtypes (the GPU
+machine has neither; the checkpoint codec is the port's own), every port
+module imports with jax, msgpack and ml_dtypes blocked, and the entry
+points refuse to run without a CUDA device unless the caller asks for the
+CPU."""
 import ast
 import os
 import pathlib
@@ -34,7 +36,8 @@ def _imported_modules(path):
 def test_no_jax_or_reference_import(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "msgpack",
+                           "ml_dtypes"), f"{path}: imports {mod}"
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -45,6 +48,8 @@ def test_every_port_module_imports_with_jax_blocked():
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['msgpack'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "print('imported', len(sys.modules))\n")

@@ -24,7 +24,13 @@ Also: the CLI on ``--device cpu`` prints the JAX launcher's lines and its
 SUMMARY; ``--backend dist`` over gloo (2 processes inside one subprocess,
 file rendezvous) prints the local backend's numbers; every flag of a later
 item raises ``NotImplementedError`` naming it; without a CUDA device the
-launcher refuses to run unless ``--device cpu`` is asked for.
+launcher refuses to run unless ``--device cpu`` is asked for. Crash
+recovery: on the chunked path a run halted at step 2 (``--checkpoint-dir
+--halt-at``) and resumed (``--resume``) gives the uninterrupted run's
+losses, bans, SUMMARY, state and ``--checkpoint`` file bit for bit, with
+a churn event after the halt; the files load in the JAX package under its
+launcher's example tree; misused flags exit as argparse errors, and a
+checkpoint pair out of sync or off the chunking raises.
 
 The JAX reference runs once for every case, in a subprocess with its own
 ``XLA_FLAGS``; nothing here starts a process group in the pytest process,
@@ -354,10 +360,6 @@ def test_dist_backend_over_gloo_gives_the_local_backends_numbers(tmp_path,
     (["--mesh", "4x2"], "item 14"),
     (["--mesh", "2x2x1"], "item 14"),
     (["--seq-parallel"], "item 14"),
-    (["--checkpoint-dir", "ck"], "item 12"),
-    (["--resume"], "item 12"),
-    (["--halt-at", "3"], "item 12"),
-    (["--checkpoint", "ck.msgpack"], "item 12"),
     (["--mesh", "2x2"], "item 14"),
 ])
 def test_flags_of_later_items_raise_naming_the_item(extra, item):
@@ -370,3 +372,145 @@ def test_launcher_needs_cuda_unless_cpu_is_asked(monkeypatch):
     argv = [a for a in BASE if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrain.main(argv + ["--steps", "1"])
+
+
+CHUNKED = BASE[:BASE.index("--steps")] + [
+    "--steps", "4", "--seq", "16", "--batch", "8", "--attack", "sign_flip",
+    "--byzantine", "3", "--tau", "1", "--clip-iters", "5", "--timeout", "120",
+    "--scan-steps", "2", "--aggregator", "butterfly_clip:warm_start=true",
+    "--churn", "leave@2:3,join@3:3", "--probation-steps", "1"]
+
+
+def _run(argv):
+    return ttrain.run(ttrain.build_parser().parse_args(argv))
+
+
+def test_halt_then_resume_equals_the_uninterrupted_run_bitwise(tmp_path,
+                                                               capsys):
+    """Leg A runs 4 steps and writes ``--checkpoint``; B halts at step 2
+    with its pair in D; C resumes from D. The churn (slot 3 leaves at step
+    2, a fresh identity joins at 3 and is banned from probation) falls
+    after the halt, and the warm start carries the restored aggregate."""
+    d = tmp_path / "D"
+    a = _run(CHUNKED + ["--checkpoint", str(tmp_path / "a.msgpack")])
+    out_a = capsys.readouterr().out
+    b = _run(CHUNKED + ["--checkpoint-dir", str(d), "--halt-at", "2"])
+    out_b = capsys.readouterr().out.splitlines()
+    assert b["halted"] == 2 and b["losses"] == a["losses"][:2]
+    assert out_b[-2] == ("halt requested at step 2: checkpointed step 2, "
+                         "exiting (resume with --resume)")
+    assert json.loads(out_b[-1].removeprefix("SUMMARY "))["steps_done"] == 2
+    assert sorted(p.name for p in d.iterdir()) == ["membership.msgpack",
+                                                   "state.msgpack"]
+    c = _run(CHUNKED + ["--checkpoint-dir", str(d), "--resume",
+                        "--checkpoint", str(tmp_path / "c.msgpack")])
+    out_c = capsys.readouterr().out
+    assert "resumed at step 2 (banned=[], arch=albert-large)" in out_c
+    assert c["losses"] == a["losses"][2:]
+    assert c["clip_iters"] == a["clip_iters"][2:]
+    assert c["summary"] == a["summary"] and c["ban_steps"] == a["ban_steps"]
+    assert a["summary"]["banned_identities"] == [4]  # the rejoin, at step 2
+    assert out_c.splitlines()[-2] == out_a.splitlines()[-2]  # SUMMARY
+    for name in ("opt", "v_prev"):
+        assert all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a["state"][name]), tree_leaves(c["state"][name])))
+    assert all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a["state"]["params"]), tree_leaves(c["state"]["params"])))
+    assert (tmp_path / "a.msgpack").read_bytes() == \
+        (tmp_path / "c.msgpack").read_bytes()
+
+
+def test_launcher_files_load_in_the_jax_package(tmp_path):
+    """params, opt and membership under the JAX launcher's own example
+    trees, bit for bit; the warm-start carry (float32 leaves here, the
+    params' dtypes there) by value."""
+    import jax
+
+    from repro.checkpoint import load_checkpoint as jload
+    from repro.core.sybil import HostMembership as JMembership
+    from repro.models import get_model
+    from repro.optim import sgd as jsgd
+
+    d = tmp_path / "D"
+    rec = _run(CHUNKED + ["--checkpoint-dir", str(d), "--halt-at", "2"])
+    jparams = get_model("albert-large", reduced=True).init_params(
+        jax.random.key(0))
+    example = {"params": jparams,
+               "opt": jsgd(3e-2, momentum=0.9, nesterov=True).init(jparams),
+               "v_prev": jax.tree.map(np.zeros_like, jparams)}
+    state, step, meta = jload(str(d / "state.msgpack"), example)
+    assert step == 2 and meta == {
+        "arch": "albert-large", "aggregator": "butterfly_clip:warm_start=True"}
+    port = rec["state"]
+    got = [np.asarray(x) for x in jax.tree.leaves(state["params"])]
+    want = [x.view(torch.int16).numpy() if x.dtype == torch.bfloat16
+            else x.numpy() for x in tree_leaves(port["params"])]
+    assert [g.tobytes() for g in got] == [w.tobytes() for w in want]
+    m = np.concatenate([np.asarray(x).reshape(-1)
+                        for x in jax.tree.leaves(state["opt"]["m"])])
+    assert m.dtype == np.float32 and m.tobytes() == port["opt"]["m"].numpy(
+    ).tobytes()
+    v = np.concatenate([np.asarray(x, np.float32).reshape(-1)
+                        for x in jax.tree.leaves(state["v_prev"])])
+    np.testing.assert_allclose(v, port["v_prev"].numpy(), rtol=1e-2,
+                               atol=1e-6)
+    mem_tree, mem_step, _ = jload(str(d / "membership.msgpack"))
+    assert mem_step == 2
+    jmem = JMembership(4).restore_tree(mem_tree)
+    summary = dict(rec["summary"])
+    for k in ("byzantine", "final_loss", "steps_done"):
+        summary.pop(k)
+    assert jmem.summary() == summary
+
+
+@pytest.mark.parametrize("extra, match", [
+    (["--checkpoint-dir", "ck"], "require --scan-steps"),
+    (["--resume"], "require --scan-steps"),
+    (["--scan-steps", "2", "--resume"], "requires it"),
+    (["--scan-steps", "2", "--halt-at", "2"], "requires --checkpoint-dir"),
+], ids=["dir_without_scan", "resume_without_scan", "resume_without_dir",
+        "halt_without_dir"])
+def test_checkpoint_flags_misused_exit_as_argparse_errors(extra, match,
+                                                          capsys):
+    with pytest.raises(SystemExit) as err:
+        ttrain.main(BASE + extra)
+    assert err.value.code == 2
+    assert match in capsys.readouterr().err
+
+
+def test_resume_refuses_a_pair_out_of_sync_or_off_the_chunking(tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    d = tmp_path / "D"
+    _run(CHUNKED + ["--checkpoint-dir", str(d), "--halt-at", "2"])
+    mem_path = str(d / "membership.msgpack")
+    tree, _, _ = load_checkpoint(mem_path)
+    save_checkpoint(mem_path, tree, step=4)  # a crash between the two saves
+    with pytest.raises(RuntimeError, match="out of sync"):
+        _run(CHUNKED + ["--checkpoint-dir", str(d), "--resume"])
+    save_checkpoint(mem_path, tree, step=2)
+    with pytest.raises(RuntimeError, match="not a multiple of --scan-steps"):
+        _run([a if a != "2" or CHUNKED[i - 1] != "--scan-steps" else "3"
+              for i, a in enumerate(CHUNKED)]
+             + ["--checkpoint-dir", str(d), "--resume"])
+
+
+def test_checkpoint_flag_on_the_one_step_path(tmp_path, capsys):
+    """``--checkpoint`` needs no chunking: one step per call writes the
+    final params and momentum (the JAX package's ``{"params", "opt"}``)."""
+    from repro_torch.checkpoint import load_checkpoint
+
+    path = str(tmp_path / "final.msgpack")
+    rec = _run(BASE[:-2] + ["--timeout", "60", "--steps", "2",
+                            "--checkpoint", path])
+    assert capsys.readouterr().out.splitlines()[-1] == \
+        f"checkpoint saved: {path}"
+    flat, step, meta = load_checkpoint(path)
+    assert step == 2 and meta == {"arch": "albert-large"}
+    params = [t for k, t in flat.items() if k.startswith("params/")]
+    momentum = [t for k, t in flat.items() if k.startswith("opt/m/")]
+    assert len(params) == len(momentum) == len(flat) // 2
+    assert all(torch.equal(a, b) for a, b in zip(
+        params, tree_leaves(rec["state"]["params"])))
+    assert torch.equal(torch.cat([m.reshape(-1) for m in momentum]),
+                       rec["state"]["opt"]["m"])
