@@ -101,11 +101,18 @@ Phases, each printing its own line:
      iterations, bans, SUMMARY, final params, momentum, carry and
      checkpoint file equal A's bit for bit, and #11 launches on B and C
      what A launched over the same steps; the file sizes, save and load
-     seconds;
+     seconds; (q) the dense-decoder family at full width,
+     ``train_byzantine --model qwen3-1.7b --full`` (d = 1,720,574,976,
+     the first stack past 2^32 elements), 4 peers, one sign-flip attacker,
+     6 steps: #1 exactly once a step, the attacker banned, no honest
+     accusation, finite norms, the peak memory, then #1 at that (4, d)
+     stack held against its plain version one partition at a time and
+     timed (``at_qwen3`` in #1's row);
   10. the launches of every kernel per path.
 
-Before the last line it prints the card's name and power limit and a JSON
-object with each kernel's numbers; the last line is the device record.
+Before the last line it prints the script's wall time, the card's name
+and power limit and a JSON object with each kernel's numbers; the last
+line is the device record.
 Any failed check raises, so the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
 """
@@ -150,6 +157,7 @@ KERNELS = {  # wrapper's launch-count name -> (TPU kernel it replaces, source)
     "centered_clip": (f"{TPU_KERNELS}:117", f"{CSRC}/centered_clip.cu"),
 }
 D_FULL = 78_223_360  # ALBERT-large's d
+D_QWEN3 = 1_720_574_976  # Qwen3-1.7B's d (the JAX package's param_count)
 # the Fig. 9 sweep's runs to tolerance at full width are plain torch, ~12
 # ms an iteration over the 5 GB stack: capped at the trusted-server
 # default instead of the reference's 3000
@@ -471,9 +479,10 @@ def clip_cases(grads, tau, weights, gen):
 
 
 def stack(n, d, gen, dev):
-    """Peer gradients with partition norms near 1 and one outlier peer."""
+    """Peer gradients with partition norms near 1 and one outlier peer
+    (scaled in place: no second stack)."""
     part = -(-d // n)
-    g = torch.randn((n, d), generator=gen, device=dev) / math.sqrt(part)
+    g = torch.randn((n, d), generator=gen, device=dev).div_(math.sqrt(part))
     g[-1] *= 10.0
     return g
 
@@ -524,7 +533,7 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
 
 # the side cases a kernel's row carries: stats key suffix -> row key
 SIDE_ROWS = {"@16": "at_16_peers", "@owner": "at_owner_stack",
-             "@s42": "at_section_4_2"}
+             "@s42": "at_section_4_2", "@q3": "at_qwen3"}
 
 
 def fold_side(stats, name, suffix):
@@ -1034,7 +1043,7 @@ def step_breakdown(tr):
     _, z_s = timed(lambda: bf.get_random_directions(seed_key, ecfg.n_parts,
                                                     ecfg.part))
     (tr.state, out), proto_s = timed(
-        lambda: eng.protocol_step(ecfg, st, tr.byz_mask, G, H))
+        lambda: eng.protocol_step(ecfg, st, tr.byz_mask, G, H, donate=True))
     del G, H
     (upd, tr._opt_state), opt_s = timed(
         lambda: tr.opt.update(out.g_hat, tr._opt_state, tr.params, st.step))
@@ -1055,9 +1064,11 @@ def hold_adaptive(label, launched, iters, cap):
 
 
 def run_path(label, argv, attack=None, expect=(), breakdown=False,
-             launches=None, bans=True):
+             launches=None, bans=True, d=D_FULL):
     """Drive one path through the launcher with the launch counts set to 0
-    just before and read just after. ``expect``: kernels that must have
+    just before and read just after, and the card's peak memory over the
+    run (``torch.cuda.max_memory_allocated``) printed; ``d``: the model's
+    parameter count the run must report. ``expect``: kernels that must have
     launched; ``launches``: the exact count of every kernel that may
     launch, all others 0, and then the attacker must be banned (``bans``)
     or, for a non-verifiable baseline, no one (``bans=False``). Where #3
@@ -1071,12 +1082,14 @@ def run_path(label, argv, attack=None, expect=(), breakdown=False,
     args = tb.build_parser().parse_args(argv)
     if attack is not None:
         attack = AttackConfig(kind=args.attack, delay=5, **attack)
+    torch.cuda.reset_peak_memory_stats()
     kc.reset_launch_counts()
     tr, summary, seconds = tb.run_model(args, attack=attack)
     torch.cuda.synchronize()
     counts = dict(kc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     byz = set(summary["byzantine"])
-    check(summary["d"] == D_FULL, f"{label}: d = {summary['d']}")
+    check(summary["d"] == d, f"{label}: d = {summary['d']}, expected {d}")
     check(all(math.isfinite(r["grad_norm"]) for r in tr.history),
           f"{label}: non-finite grad norm")
     check(not summary["honest_accused"],
@@ -1098,7 +1111,7 @@ def run_path(label, argv, attack=None, expect=(), breakdown=False,
               f"{sorted(byz) if bans else []}")
     print(f"{label}: median step {statistics.median(seconds):.3f} s over "
           f"{len(seconds)} steps {[round(s, 4) for s in seconds]}; "
-          f"launches {counts}", flush=True)
+          f"launches {counts}; peak memory {peak / 1e9:.2f} GB", flush=True)
     if breakdown:
         parts = step_breakdown(tr)
         print(f"{label}: one more step, seconds by part "
@@ -1137,11 +1150,12 @@ def run_engine_path(label, n, aggregator, attack, launches, groups=None):
     params = boundary.flatten(params0)
     del params0
 
-    def grad_fn(flat, batch):
+    def grad_fn(flat, batch, out=None):
         leaves = [t.detach().requires_grad_(True)
                   for t in boundary.unflatten_leaves(flat)]
         loss = loss_fn(tree_unflatten(boundary.template, leaves), batch)
-        return boundary.flatten_leaves(torch.autograd.grad(loss, leaves))
+        return boundary.flatten_leaves(torch.autograd.grad(loss, leaves),
+                                       out=out)
 
     opt = sgd(0.05)
 
@@ -1357,11 +1371,12 @@ def run_membership_path(label):
     params = boundary.flatten(params0)
     del params0
 
-    def grad_fn(flat, batch):
+    def grad_fn(flat, batch, out=None):
         leaves = [t.detach().requires_grad_(True)
                   for t in boundary.unflatten_leaves(flat)]
         loss = loss_fn(tree_unflatten(boundary.template, leaves), batch)
-        return boundary.flatten_leaves(torch.autograd.grad(loss, leaves))
+        return boundary.flatten_leaves(torch.autograd.grad(loss, leaves),
+                                       out=out)
 
     opt = sgd(0.05)
 
@@ -1500,6 +1515,90 @@ def run_section_4_2(label, stats):
          (nd + 2 * pd) * 4 + tbl, nd * (6 * it + 6),
          ((it + 2) * nd + (2 * it + 1) * pd) * 4 + tbl, True, phase=label)
     fold_side(stats, "butterfly_clip_fused", "@s42")
+    del grads, z
+    torch.cuda.empty_cache()
+    return counts
+
+
+QWEN3 = ["--model", "qwen3-1.7b", "--full", "--peers", "4", "--byzantine",
+         "1", "--attack", "sign_flip", "--validators", "2", "--clip-iters",
+         str(CLIP_ITERS), "--seq", "128", "--batch", "4", "--steps", "6"]
+
+
+def run_qwen3(label, stats):
+    """(q) the dense-decoder family at full width: ``train_byzantine
+    --model qwen3-1.7b --full`` (d = 1,720,574,976, bf16 storage, float32
+    flat master params; 4 peers, sign flip on peer 3, 2 validators, 5 clip
+    iterations, seq 128, batch 4, 6 steps) through ``run_path``: #1 exactly
+    once a step and no other kernel, the attacker banned, no honest peer
+    accused or banned, finite norms, the peak memory, the step median and
+    one more step by part. Then #1 at this path's (4, d) stack as the path
+    calls it (4 partitions of 430,143,744, tau 1, a cold start), repeated
+    bit for bit and held against its plain version one partition at a time
+    (each partition's clip and tables read only its own columns; the plain
+    version's temporaries for the whole stack would not fit beside it),
+    timed, folded into #1's row of ``stats`` (``at_qwen3``); the kernel's
+    outputs wait on the host (6.9 GB), so the plain version's temporaries
+    have room on the card. Returns the launch counts."""
+    from repro_torch.kernels import centered_clip as kc
+
+    _, counts = run_path(label, QWEN3, breakdown=True,
+                         launches={"butterfly_clip_fused": 6}, d=D_QWEN3)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    n = n_parts = 4
+    grads = stack(n, D_QWEN3, gen, "cuda")
+    part = kc.part_len(D_QWEN3, n_parts)
+    z = torch.randn((n_parts, part), generator=gen, device="cuda")
+    z.div_(torch.linalg.vector_norm(z, dim=1, keepdim=True))
+    taus, it = [1.0] * CLIP_ITERS, CLIP_ITERS
+
+    def kern():
+        return kc.butterfly_clip_fused(grads, n_parts, taus, z)
+
+    def plain(j):
+        cols = slice(j * part, (j + 1) * part)
+        return kc.butterfly_clip_fused_plain(grads[:, cols], 1, taus,
+                                             z[j:j + 1])
+
+    def plain_all():
+        for j in range(n_parts):
+            plain(j)
+
+    out = tuple(t.cpu() for t in kern())
+    check(bitwise(out, tuple(t.cpu() for t in kern())),
+          f"{label}: #1 at (4, d) not bitwise repeatable")
+    errs, tops, ok = [0.0] * 3, [0.0] * 3, True
+    for j in range(n_parts):
+        ref = tuple(t.cpu() for t in plain(j))
+        for o, (x, y) in enumerate(zip((t[j:j + 1] for t in out), ref)):
+            ok = ok and torch.allclose(x, y, rtol=RTOL, atol=ATOL)
+            errs[o] = max(errs[o], float((x - y).abs().max()))
+            tops[o] = max(tops[o], float(y.abs().max()))
+        del ref
+    err = max(errs)
+    rel = max(e / max(t, 1e-30) for e, t in zip(errs, tops))
+    check(ok and rel <= RTOL, f"{label}: #1 at (4, d) disagrees with plain, "
+          f"max abs err {err:.3e}, relative {rel:.3e}")
+    del out
+    nd, pd, tbl = n * D_QWEN3, n_parts * part, 2 * n * n_parts * 4
+    nbytes, ops = (nd + 2 * pd) * 4 + tbl, nd * (6 * it + 6)
+    st = stats.setdefault("butterfly_clip_fused@q3", {})
+    st.update(max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
+              plain_ms=time_ms(plain_all, reps=3),
+              bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= ops / F32_FLOPS_PER_S else "operations"),
+              bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                 ops / F32_FLOPS_PER_S),
+              moved_bytes=((it + 2) * nd + (2 * it + 1) * pd) * 4 + tbl)
+    print(f"{label}: butterfly_clip_fused n={n} d={D_QWEN3} P={n_parts} "
+          f"{it} iterations tau=1 cold: {st['ms']:.3f} ms (plain "
+          f"{st['plain_ms']:.3f} ms a partition at a time, bound "
+          f"{st['bound_ms']:.3f} ms by {st['bound_by']}; moves "
+          f"{st['moved_bytes']} bytes, "
+          f"{st['moved_bytes'] / st['ms'] / 1e9:.3f} TB/s), max abs err "
+          f"{err:.3e}, relative {rel:.3e}", flush=True)
+    fold_side(stats, "butterfly_clip_fused", "@q3")
     del grads, z
     torch.cuda.empty_cache()
     return counts
@@ -1720,6 +1819,7 @@ def main():
                     "the per-pass breakdown of #1, #3, #4, #5, #7, #8, #10 "
                     "and #12 and the yardstick")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1863,6 +1963,8 @@ def main():
     # the crash drill: halt and resume bit for bit on launch path (j)
     paths.update(run_drill("phase 9 (p) crash drill: " + " ".join(DRILL),
                            card))
+    # the dense-decoder family at full width on the main path
+    paths["qwen3"] = run_qwen3("phase 9 (q) qwen3-1.7b --full", stats)
     print("phase 10: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
@@ -1892,6 +1994,8 @@ def main():
         if name == "adaptive_clip_step":
             # the iterations the path's calls stepped, beside the launches
             row["iters"] = sum(adaptive_sum["clip_iters"])
+        if name == "butterfly_clip_fused":
+            row["launches_qwen3"] = paths["qwen3"][name]
         if name in ("verify_tables", "adaptive_clip_step"):
             # the crash drill's legs: A uninterrupted, B halted, C resumed
             row["launches_drill"] = {
@@ -1904,6 +2008,7 @@ def main():
             if key in st:
                 row[key] = st[key]
         rows.append(row)
+    print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

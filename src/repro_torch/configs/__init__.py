@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Only ALBERT-large is ported so far; the other families of the JAX
-package's zoo wait for their slice.
+Ported so far: ALBERT-large (the shared dense stack) and the dense
+decoders Qwen3-1.7B, ChatGLM3-6B and Qwen1.5-110B (RoPE, QKV bias,
+QK-norm, unshared layers); the other families of the JAX package's zoo
+wait for ROADMAP item 13.
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _ARCH_MODULES = {
+    "qwen1.5-110b": "qwen1_5_110b",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "chatglm3-6b": "chatglm3_6b",
     "albert-large": "albert_large",
 }
 

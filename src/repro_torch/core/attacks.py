@@ -23,9 +23,14 @@ def _lam(lam, grads):
     return torch.tensor(lam, dtype=grads.dtype, device=grads.device)
 
 
+def sign_flipped(grads, lam=1000.0):
+    """-lam times ``grads``: what a sign-flipping attacker sends."""
+    return -_lam(lam, grads) * grads
+
+
 def sign_flip(grads, byz_mask, *, lam=1000.0, **_):
     """Each attacker sends -lam times its true gradient."""
-    return torch.where(byz_mask[:, None], -_lam(lam, grads) * grads, grads)
+    return torch.where(byz_mask[:, None], sign_flipped(grads, lam), grads)
 
 
 def random_direction(grads, byz_mask, *, key, lam=1000.0, **_):

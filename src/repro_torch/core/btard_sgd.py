@@ -98,14 +98,15 @@ class BTARDTrainer:
         self.history: list = []
         self._step = 0
 
-    def _grad(self, flat, batch):
-        """Flat f32 gradient of the loss at the flat f32 params."""
+    def _grad(self, flat, batch, out=None):
+        """Flat f32 gradient of the loss at the flat f32 params (written
+        into ``out`` when given)."""
         leaves = [t.detach().requires_grad_(True)
                   for t in self.boundary.unflatten_leaves(flat)]
         params = tree_unflatten(self.boundary.template, leaves)
         loss = self._loss(params, batch)
         grads = torch.autograd.grad(loss, leaves)
-        return self.boundary.flatten_leaves(grads)
+        return self.boundary.flatten_leaves(grads, out=out)
 
     def _grads_fn(self):
         return eng.device_data_grads_fn(
@@ -226,7 +227,7 @@ class BTARDTrainer:
             flips = eng.flip_mask(ecfg, st, self.byz_mask)
             G, honest_G = grads_fn(self.params, st.step, flips)
             self.state, out = eng.protocol_step(ecfg, st, self.byz_mask, G,
-                                                honest_G)
+                                                honest_G, donate=True)
             del G, honest_G
             updates, self._opt_state = self.opt.update(
                 out.g_hat, self._opt_state, self.params, st.step)

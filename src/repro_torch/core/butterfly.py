@@ -97,9 +97,9 @@ def get_random_directions(seed, n_parts: int, part: int):
     ``seed`` is an integer (tensor) or an already-made key."""
     key = seed if (isinstance(seed, torch.Tensor) and seed.shape == (2,)) \
         else prng.key(seed)
-    z = prng.normal(key, (n_parts, part))
-    return z / torch.clamp(torch.linalg.vector_norm(z, dim=1, keepdim=True),
-                           min=1e-30)
+    z = prng.normal(key, (n_parts, part))  # in blocks: prng.NORMAL_BLOCK
+    return z.div_(torch.clamp(torch.linalg.vector_norm(z, dim=1, keepdim=True),
+                              min=1e-30))
 
 
 def verification_tables(grads, agg, z, tau):

@@ -468,6 +468,40 @@ def phase_attack(cfg, state, G, honest_G, byz, engage_b=None):
     return G, honest_G, delay_buf
 
 
+def _in_place_covers(cfg, G) -> bool:
+    """Whether :func:`_attack_in_place` covers this step's configuration:
+    a float32 stack, an attack that replaces each attacked row from that
+    row alone (or none), and nothing that reads the honest copy beyond
+    the row mismatch (no delay buffer, self-clip, probation gate or wire
+    projection)."""
+    return (G.dtype == torch.float32 and not cfg.elastic
+            and cfg.clip_lambda is None
+            and not comp_mod.is_wrapped(cfg.agg_spec())
+            and cfg.attack in ("none", "sign_flip", "label_flip"))
+
+
+def _attack_in_place(cfg, state, G, attacked):
+    """:func:`phase_attack` on a stack that is its own honest copy, in
+    place, one row at a time (a (d,) temporary, never a second stack):
+    the sign flip's rows get ``attacks.sign_flipped``, the bits of
+    ``attacks.sign_flip``. Returns (n,) bool, what ``torch.any(G !=
+    honest_G, dim=1)`` gives after the copying attack: an attacked row
+    against its honest values, any other row against itself."""
+    flip = cfg.attack == "sign_flip" and _attacking(cfg, state.step)
+    rows = set(torch.nonzero(attacked).flatten().tolist()) if flip else ()
+    mismatch = []
+    for i in range(G.shape[0]):
+        row = G[i]
+        if i in rows:
+            mal = attacks_mod.sign_flipped(row, cfg.lam)
+            mismatch.append(torch.any(mal != row))
+            row.copy_(mal)
+            del mal
+        else:
+            mismatch.append(torch.any(row != row))
+    return torch.stack(mismatch)
+
+
 def phase_mprng(cfg, state, byz):
     """The shared seed plus the abort-ban outcome (App. A.2)."""
     seed = prng.randint(_phase_key(state, 0), (), 0, 2**31 - 1)
@@ -595,9 +629,11 @@ def _choose_targets(cfg, state, active_b):
     return target, valid_audit, is_validator, target_hot, audited
 
 
-def phase_verify(cfg, state, G, honest_G, agg, honest_agg, s_tbl, true_s,
-                 norm_tbl, true_norm, byz, weights):
-    """Verifications 1-3 and the validator spot checks -> accusations."""
+def phase_verify(cfg, state, G, grad_mismatch, agg, honest_agg, s_tbl,
+                 true_s, norm_tbl, true_norm, byz, weights):
+    """Verifications 1-3 and the validator spot checks -> accusations.
+    ``grad_mismatch`` (n,): the rows of G that differ from their honest
+    recompute."""
     active_b = state.active > 0
     mismatch_norm = (norm_tbl - true_norm).abs() > 1e-4 * (1.0 + true_norm)
     mismatch_s = (s_tbl - true_s).abs() > 1e-4 * (1.0 + true_s.abs())
@@ -625,7 +661,6 @@ def phase_verify(cfg, state, G, honest_G, agg, honest_agg, s_tbl, true_s,
 
     target, valid_audit, is_validator, target_hot, audited = _choose_targets(
         cfg, state, active_b)
-    grad_mismatch = torch.any(G != honest_G, dim=1)
     row_tol = 1e-4 * (1.0 + true_s.abs().amax(dim=1))
     s_row_mismatch = (s_tbl - true_s).abs().amax(dim=1) > row_tol
     agg_mismatch = torch.any(agg != honest_agg, dim=1)
@@ -646,14 +681,15 @@ def phase_verify(cfg, state, G, honest_G, agg, honest_agg, s_tbl, true_s,
 
 
 def phase_accuse_ban(cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban,
-                     G, honest_G, agg, honest_agg, s_tbl, true_s, norm_tbl,
+                     grad_mismatch, agg, honest_agg, s_tbl, true_s, norm_tbl,
                      true_norm):
-    """ACCUSE resolution (Alg. 4): the accused peer's work is recomputed;
+    """ACCUSE resolution (Alg. 4): the accused peer's work is recomputed
+    (``grad_mismatch``: its gradient row differs from the recompute);
     the target is guilty if the accusation holds (and so is everyone who
     covered for it), else the accuser is."""
     active_b = state.active > 0
     cheated = (
-        torch.any(G != honest_G, dim=1)
+        grad_mismatch
         | torch.any((s_tbl - true_s).abs() > 1e-5 + 1e-3 * true_s.abs(), dim=1)
         | torch.any((norm_tbl - true_norm).abs()
                     > 1e-5 + 1e-3 * true_norm.abs(), dim=1)
@@ -690,7 +726,7 @@ def _block_diag(blocks):
     return out
 
 
-def phase_hier(cfg, state, byz, weights, seed, G, G_cmp, honest_G_cmp,
+def phase_hier(cfg, state, byz, weights, seed, G, G_cmp, grad_mismatch,
                samp_mask, mprng_ban):
     """The hierarchical butterfly-of-butterflies: aggregation, aggregator
     attack, misreport, verification and accuse/ban in the two-level
@@ -792,7 +828,6 @@ def phase_hier(cfg, state, byz, weights, seed, G, G_cmp, honest_G_cmp,
     # the digest sampling and of the topology
     target, valid_audit, is_validator, target_hot, audited = _choose_targets(
         cfg, state, active_b)
-    grad_mismatch = torch.any(G_cmp != honest_G_cmp, dim=1)
     s_h, true_s_h = s1.reshape(n, gs), true_s1.reshape(n, gs)
     row_tol = 1e-4 * (1.0 + true_s_h.abs().amax(dim=1))
     s_row_mismatch = (s_h - true_s_h).abs().amax(dim=1) > row_tol
@@ -813,9 +848,9 @@ def phase_hier(cfg, state, byz, weights, seed, G, G_cmp, honest_G_cmp,
 
     (new_active, banned_now, reason, cheated,
      accused_inc) = phase_accuse_ban(
-        cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban, G_cmp,
-        honest_G_cmp, u_n, honest_u_n, s_h, true_s_h, norms1.reshape(n, gs),
-        true_norm1.reshape(n, gs))
+        cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban,
+        grad_mismatch, u_n, honest_u_n, s_h, true_s_h,
+        norms1.reshape(n, gs), true_norm1.reshape(n, gs))
     return (new_active, banned_now, reason, cheated, accused_inc, accuse,
             sys_accuse, checksum_violations, check_averaging, last_checked,
             agg_std, h.iters)
@@ -836,15 +871,18 @@ def _elect(cfg: EngineConfig, key, active):
 # One full protocol step
 # ---------------------------------------------------------------------------
 def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
-                  honest_G):
+                  honest_G, donate: bool = False):
     """One BTARD-SGD aggregation round: the membership events, then the
     hierarchical, the flat verifiable or the non-verifiable branch.
 
     G / honest_G: (n, d) — honest_G is what a validator recomputing from
     the public seed obtains (the same tensor as G unless labels were
     flipped). Rows of slots neither active nor in probation are zeroed
-    here, probation rows after the attack and their spot-check. Returns
-    (new_state, outputs).
+    here, probation rows after the attack and their spot-check. With
+    ``donate`` (the caller drops G after the call, as ``jax.jit``'s
+    donated buffers) a float32 G that is its own honest copy is zeroed
+    and attacked in place where :func:`_attack_in_place` can: no second
+    stack, the same bits. Returns (new_state, outputs).
     """
     spec = cfg.agg_spec()
     device = state.active.device
@@ -866,11 +904,17 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
     if cfg.elastic:
         prob_b = state.lifecycle == SLOT_PROBATION
         engaged = active_b | prob_b
-    G = torch.where(engaged[:, None], G.to(torch.float32), 0.0)
-    honest_G = G if same else torch.where(
-        engaged[:, None], honest_G.to(torch.float32), 0.0)
-    G, honest_G, delay_buf = phase_attack(cfg, state, G, honest_G, byz,
-                                          engage_b=engaged)
+    grad_mismatch = None
+    if donate and same and _in_place_covers(cfg, G):
+        G.masked_fill_(~engaged[:, None], 0.0)
+        grad_mismatch = _attack_in_place(cfg, state, G, byz & engaged)
+        honest_G, delay_buf = None, state.delay_buf
+    else:
+        G = torch.where(engaged[:, None], G.to(torch.float32), 0.0)
+        honest_G = G if same else torch.where(
+            engaged[:, None], honest_G.to(torch.float32), 0.0)
+        G, honest_G, delay_buf = phase_attack(cfg, state, G, honest_G, byz,
+                                              engage_b=engaged)
     promote = sybil_ban = None
     probation_clean = state.probation_clean
     if cfg.elastic:
@@ -911,12 +955,16 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
             G_cmp = comp_mod.wire_grads(G, codec, n_wire)
             honest_G_cmp = (G_cmp if honest_G is G else
                             comp_mod.wire_grads(honest_G, codec, n_wire))
+        # the rows a validator's recompute would not reproduce
+        if grad_mismatch is None:
+            grad_mismatch = torch.any(G_cmp != honest_G_cmp, dim=1)
+        honest_G = honest_G_cmp = None  # nothing below reads them
 
     if spec.verifiable and cfg.hierarchical:
         (new_active, banned_now, reason, cheated, accused_inc, accuse,
          sys_accuse, cs_viol, chk_avg, last_checked, agg,
          iters_used) = phase_hier(cfg, state, byz, weights, seed, G, G_cmp,
-                                  honest_G_cmp, samp_mask, mprng_ban)
+                                  grad_mismatch, samp_mask, mprng_ban)
     elif spec.verifiable:
         agg, z, s_tbl, norm_tbl, iters_used = phase_aggregation(
             cfg, state, G, weights, seed, samp_idx, G_cmp)
@@ -929,12 +977,12 @@ def protocol_step(cfg: EngineConfig, state: ProtocolState, byz_mask, G,
 
         (accuse, sys_accuse, mismatch_s, cs_viol, chk_avg,
          last_checked) = phase_verify(
-            cfg, state, G_cmp, honest_G_cmp, agg, honest_agg, s_tbl, true_s,
-            norm_tbl, true_norm, byz, weights)
+            cfg, state, G_cmp, grad_mismatch, agg, honest_agg, s_tbl,
+            true_s, norm_tbl, true_norm, byz, weights)
         (new_active, banned_now, reason, cheated,
          accused_inc) = phase_accuse_ban(
-            cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban, G_cmp,
-            honest_G_cmp, agg, honest_agg, s_tbl, true_s, norm_tbl,
+            cfg, state, accuse, sys_accuse, mismatch_s, mprng_ban,
+            grad_mismatch, agg, honest_agg, s_tbl, true_s, norm_tbl,
             true_norm)
     else:
         agg, z, s_tbl, norm_tbl, iters_used = phase_aggregation(
@@ -1045,16 +1093,23 @@ def device_data_grads_fn(n: int, batch_fn: Callable, grad_fn: Callable,
     """grads_fn(params, t, flips) -> (G, honest_G) over all n peers, each
     row the gradient on that peer's public-seed batch. With ``label_flip``
     the flipped rows of G carry the flipped-label gradient while honest_G
-    keeps the recompute; otherwise honest_G is G itself."""
+    keeps the recompute; otherwise honest_G is G itself.
+    grad_fn(params, batch, out=None) returns the flat gradient, or writes
+    it into ``out``: the first row sizes one (n, d) stack, and every later
+    row is written straight into it, no row held beside the stack."""
 
     def grads_fn(params, t, flips):
-        rows = [grad_fn(params, batch_fn(i, t, False)) for i in range(n)]
-        G = torch.stack(rows)
+        row = grad_fn(params, batch_fn(0, t, False))
+        G = row.new_empty((n, *row.shape))
+        G[0] = row
+        del row
+        for i in range(1, n):
+            grad_fn(params, batch_fn(i, t, False), out=G[i])
         if not label_flip:
             return G, G
         flipped = G.clone()
         for i in torch.nonzero(flips).flatten().tolist():
-            flipped[i] = grad_fn(params, batch_fn(i, t, True))
+            grad_fn(params, batch_fn(i, t, True), out=flipped[i])
         return flipped, G
 
     return grads_fn

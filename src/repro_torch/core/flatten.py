@@ -43,7 +43,9 @@ class FlatBoundary:
 
     def __init__(self, template):
         leaves = tree_leaves(template)
-        self.template = template
+        # the structure alone: holding the template's tensors would keep
+        # the initial weights alive beside the flat vector
+        self.template = tree_unflatten(template, [None] * len(leaves))
         self.shapes = tuple(tuple(t.shape) for t in leaves)
         self.dtypes = tuple(t.dtype for t in leaves)
         for dt, shape in zip(self.dtypes, self.shapes):
@@ -62,8 +64,16 @@ class FlatBoundary:
         """tree (the template's structure) -> (d,) f32."""
         return self.flatten_leaves(tree_leaves(tree))
 
-    def flatten_leaves(self, leaves):
-        return torch.cat([t.reshape(-1).to(torch.float32) for t in leaves])
+    def flatten_leaves(self, leaves, out=None):
+        """Leaves -> (d,) f32; into ``out`` (a (d,) f32 tensor, e.g. a row
+        of the peers' stack) leaf by leaf when given, with no f32 copy of
+        the leaves on the way."""
+        if out is None:
+            return torch.cat([t.reshape(-1).to(torch.float32)
+                              for t in leaves])
+        for i, t in enumerate(leaves):
+            out[self.offsets[i]:self.offsets[i + 1]].copy_(t.reshape(-1))
+        return out
 
     def unflatten_leaves(self, flat):
         """(d,) f32 -> leaves with the template's shapes and dtypes."""

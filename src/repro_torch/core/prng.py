@@ -190,9 +190,33 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * big, p * x)
 
 
+# The most elements one eager draw of ``normal`` takes at once: its int64
+# and float64 temporaries cost 8 bytes an element each (a 1.72e9-element z
+# would hold several of 13.8 GB), so a larger array is drawn in blocks of
+# this many flat elements, through ``offset``: the same bits. 2^25 keeps
+# a block's temporaries near 6 GB together (larger blocks fragment the
+# card's cache beside a Qwen3-1.7B stack) and draws a launch owner's z at
+# ALBERT-large's width (19.6e6) in one piece.
+NORMAL_BLOCK = 1 << 25
+
+
 def normal(k: torch.Tensor, shape=(), offset: int = 0) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) * erfinv(U(-1, 1)).
-    ``offset`` as in :func:`bits`."""
+    ``offset`` as in :func:`bits`. Above ``NORMAL_BLOCK`` elements the
+    draw goes in blocks of flat elements written into the float32 result,
+    the bits of one draw."""
+    shape = tuple(shape)
+    size = math.prod(shape)
+    if size <= NORMAL_BLOCK:
+        return _normal(k, shape, offset)
+    out = torch.empty((size,), dtype=torch.float32, device=k.device)
+    for start in range(0, size, NORMAL_BLOCK):
+        m = min(NORMAL_BLOCK, size - start)
+        out[start:start + m] = _normal(k, (m,), offset + start)
+    return out.reshape(shape)
+
+
+def _normal(k, shape, offset):
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(k, shape, lo, 1.0, offset)
     return torch.tensor(np.sqrt(2), dtype=torch.float32,

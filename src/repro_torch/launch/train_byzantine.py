@@ -5,9 +5,11 @@ same flags and printed lines, plus ``--device`` (default ``cuda``).
 Without ``--model`` it runs the toy gaussian-mixture classifier through
 the host loop (``BTARDTrainer.run``): 16 peers, the last 7 Byzantine,
 attack from step 10, ``sgd(0.3, momentum=0.9)``, 60 steps, printing the
-accuracy and the bans. ``--model`` trains a zoo LM (``albert_large``)
+accuracy and the bans. ``--model`` trains a zoo LM (``albert_large``, or
+a dense decoder: ``qwen3-1.7b``, ``chatglm3-6b``, ``qwen1.5-110b``)
 through the scanned engine (``run_scan``, 4 peers, one attacker) and
-prints one line per step and a ``SUMMARY {...}`` line.
+prints one line per step and a ``SUMMARY {...}`` line; ``--full`` is the
+published width, else the reduced smoke variant.
 
   PYTHONPATH=src python -m repro_torch.launch.train_byzantine \\
       --attack sign_flip --defense btard
@@ -15,6 +17,8 @@ prints one line per step and a ``SUMMARY {...}`` line.
       --defense krum --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train_byzantine \\
       --model albert_large --full --attack sign_flip --steps 6
+  PYTHONPATH=src python -m repro_torch.launch.train_byzantine \\
+      --model qwen3-1.7b --full --attack sign_flip --steps 6
 
 ``--defense`` takes ``btard`` or any of the §4.1 baselines (``mean``,
 ``coordinate_median``, ``trimmed_mean``, ``geometric_median``, ``krum``,
@@ -58,7 +62,8 @@ def build_parser():
     ap.add_argument("--tau", type=float, default=1.0)
     ap.add_argument("--validators", type=int, default=2)
     ap.add_argument("--model", default=None, metavar="ARCH",
-                    help="train the LM (albert_large) through the scanned "
+                    help="train the LM (albert_large, qwen3-1.7b, "
+                         "chatglm3-6b, qwen1.5-110b) through the scanned "
                          "engine instead of the toy classifier")
     ap.add_argument("--aggregator", default=None,
                     help="AggregatorSpec string (overrides --defense), e.g. "

@@ -1,8 +1,9 @@
-"""Shared building blocks of the ported models: LayerNorm/RMSNorm, the dense
-MLP, embeddings with learned positions, and the output projection.
+"""Shared building blocks of the ported models: LayerNorm/RMSNorm, the
+QK-norm, the dense MLP, RoPE, embeddings with learned positions, and the
+output projection.
 
 Counterpart of ``repro.models.layers``, restricted to what ALBERT-large
-runs. Parameters are nested dicts of tensors with the JAX package's names,
+and the dense decoders run. Parameters are nested dicts of tensors with the JAX package's names,
 shapes and dtypes (``models.convert`` maps one onto the other). Weights are
 drawn with the port's threefry generator (``core.prng``), so a seed gives
 the JAX package's weights up to the last bit of ``normal``.
@@ -56,6 +57,13 @@ def apply_norm(p, cfg, x):
     return y.to(x.dtype)
 
 
+def rms_head_norm(scale, x, eps=1e-6):
+    """QK-norm over the head dim, in float32, cast back. x: (..., head_dim)."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + eps)
+    return (y * scale).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dense MLP
 # ---------------------------------------------------------------------------
@@ -85,6 +93,41 @@ def apply_mlp(p, cfg, x):
     else:
         h = act_fn(cfg, h)
     return h @ p["wdown"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(cfg, dim):
+    """The (dim/2,) float32 inverse frequencies, in numpy as the JAX package
+    computes them, so both packages rotate by the same bits."""
+    half = dim // 2
+    return 1.0 / (cfg.rope_theta
+                  ** (np.arange(0, half, dtype=np.float32) / half))
+
+
+def apply_rope(x, pos, cfg, dim=None):
+    """x: (..., seq, heads, head_dim) with pos (..., seq).
+
+    cfg.rope == 'standard': rotate the full head dim (NeoX halves layout).
+    cfg.rope == 'half':     GLM 2d-rope — rotate only the first half of the
+                            head dim, pass through the second half.
+    cfg.rope == 'none':     identity.
+    Angles, cos and sin in float32; the result in x's dtype.
+    """
+    if cfg.rope == "none":
+        return x
+    hd = dim or x.shape[-1]
+    rot = hd if cfg.rope == "standard" else hd // 2
+    freqs = torch.from_numpy(rope_freqs(cfg, rot)).to(x.device)
+    angles = pos[..., None].to(torch.float32) * freqs  # (..., seq, rot/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., seq, 1, rot/2)
+    sin = torch.sin(angles)[..., None, :]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    xf1 = x_rot[..., :rot // 2].to(torch.float32)
+    xf2 = x_rot[..., rot // 2:].to(torch.float32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -26,10 +26,10 @@ LOSS_CHUNK = 2048
 class Model:
     def __init__(self, cfg):
         cfg.validate()
-        if cfg.rope != "none" or cfg.qkv_bias or cfg.qk_norm or cfg.n_experts:
+        if cfg.n_experts:
             raise NotImplementedError(
-                f"{cfg.name}: only the ALBERT-style dense stack is ported "
-                "(rope none, no qkv bias / qk norm / experts)")
+                f"{cfg.name}: experts (MoE) are not ported yet (ROADMAP "
+                "item 13); the dense stacks are")
         self.cfg = cfg
 
     def init_params(self, key):
@@ -50,7 +50,7 @@ class Model:
         pos = torch.arange(S, device=tokens.device)
         x = embed_tokens(params, cfg, inputs,
                          pos=pos if cfg.learned_pos else None)
-        x = tfm.stack_apply(params, cfg, x)
+        x = tfm.stack_apply(params, cfg, x, pos)
         x = apply_norm(params["final_norm"], cfg, x)
 
         n_chunks = -(-S // LOSS_CHUNK)

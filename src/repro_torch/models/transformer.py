@@ -1,13 +1,18 @@
 """Block assembly for the ported models: prefix blocks, then the repeated
-pattern (one shared parameter set applied ``n_repeats`` times, ALBERT's
-cross-layer sharing), then suffix blocks.
+pattern, then suffix blocks. The pattern's parameters are either one set
+applied ``n_repeats`` times (ALBERT's cross-layer sharing) or stacked
+along a leading ``n_repeats`` axis, one slice per repeat (the dense
+decoders).
 
 Counterpart of ``repro.models.transformer`` for dense self-attention
 blocks. The JAX package scans the pattern; here it is a Python loop.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import prng
+from repro_torch.core.flatten import tree_leaves, tree_unflatten
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_init, norm_init
 
@@ -16,7 +21,8 @@ def _check_spec(spec):
     if spec.mixer != "attn_full" or spec.mlp != "dense" or spec.cross:
         raise NotImplementedError(
             f"block {spec} is not ported: only dense self-attention blocks "
-            "(attn_full + dense MLP) exist in this slice")
+            "(attn_full + dense MLP) exist so far; local and cross "
+            "attention, MLA, SSM, RG-LRU and MoE are ROADMAP item 13's")
 
 
 def block_init(key, cfg, spec):
@@ -30,9 +36,17 @@ def block_init(key, cfg, spec):
     }
 
 
-def block_apply(p, cfg, spec, x):
-    x = x + attn.gqa_apply(p["mixer"], cfg, spec, apply_norm(p["norm1"], cfg, x))
+def block_apply(p, cfg, spec, x, pos):
+    h = apply_norm(p["norm1"], cfg, x)
+    x = x + attn.gqa_apply(p["mixer"], cfg, spec, h, pos)
     return x + apply_mlp(p["mlp"], cfg, apply_norm(p["norm2"], cfg, x))
+
+
+def _stacked(trees):
+    """Trees of one structure -> one tree whose leaves are the trees'
+    leaves stacked along a new leading axis (``jax.vmap``'s output)."""
+    cols = zip(*(tree_leaves(t) for t in trees))
+    return tree_unflatten(trees[0], [torch.stack(c) for c in cols])
 
 
 def stack_init(key, cfg):
@@ -46,24 +60,36 @@ def stack_init(key, cfg):
             return {f"l{i}": block_init(prng.fold_in(k, i), cfg, s)
                     for i, s in enumerate(cfg.pattern)}
 
-        if not cfg.share_pattern_params:
-            raise NotImplementedError(
-                "an unshared repeated pattern (stacked per-repeat weights) "
-                "is not ported: only ALBERT's shared pattern is")
-        p["pattern"] = one_macro(kq)
+        if cfg.share_pattern_params:
+            p["pattern"] = one_macro(kq)
+        else:
+            # jax.vmap(one_macro)(split(kq, n_repeats)): repeat r from key r
+            p["pattern"] = _stacked([one_macro(k) for k in
+                                     prng.split(kq, cfg.n_repeats)])
     if cfg.suffix:
         p["suffix"] = [block_init(prng.fold_in(ks, i), cfg, s)
                        for i, s in enumerate(cfg.suffix)]
     return p
 
 
-def stack_apply(p, cfg, x):
+def _repeats(p, cfg):
+    """The pattern's parameters of each repeat: the shared set every time,
+    or the stacked leaves' slices, taken with one ``torch.unbind`` per
+    leaf (in the backward one stack per leaf, where indexing each repeat
+    would leave a full-size buffer per repeat and leaf)."""
+    if cfg.share_pattern_params:
+        return [p["pattern"]] * cfg.n_repeats
+    slices = [torch.unbind(leaf) for leaf in tree_leaves(p["pattern"])]
+    return [tree_unflatten(p["pattern"], list(one)) for one in zip(*slices)]
+
+
+def stack_apply(p, cfg, x, pos):
     for i, spec in enumerate(cfg.prefix):
-        x = block_apply(p["prefix"][i], cfg, spec, x)
+        x = block_apply(p["prefix"][i], cfg, spec, x, pos)
     if cfg.pattern and cfg.n_repeats:
-        for _ in range(cfg.n_repeats):
+        for macro in _repeats(p, cfg):
             for i, spec in enumerate(cfg.pattern):
-                x = block_apply(p["pattern"][f"l{i}"], cfg, spec, x)
+                x = block_apply(macro[f"l{i}"], cfg, spec, x, pos)
     for i, spec in enumerate(cfg.suffix):
-        x = block_apply(p["suffix"][i], cfg, spec, x)
+        x = block_apply(p["suffix"][i], cfg, spec, x, pos)
     return x

@@ -796,3 +796,68 @@ def test_checkpoint_round_trips_cuda_trees_bitwise_onto_the_examples_device(
     on_cpu, _, _ = load_checkpoint(path, {"opt": {"m": torch.zeros(70_001)}})
     assert on_cpu["opt"]["m"].device.type == "cpu"
     assert torch.equal(on_cpu["opt"]["m"], tree["opt"]["m"].cpu())
+
+
+@pytest.mark.cuda
+def test_engine_path_builds_and_attacks_its_stack_in_place_on_card(
+        cuda, monkeypatch):
+    """The trainer's engine path at 8 peers on the toy classifier widened
+    to d = 2^20 + 4, its batches made beforehand: the gradients go
+    straight into one (8, d) stack (the peak above what was held stays
+    within the stack and two rows), and the donated protocol step zeroes
+    and sign-flips it in place (its peak stays under one more stack, where
+    copying makes two) with every output bit for bit the copying step's.
+    z is drawn in blocks of 2^16 (the same bits), so the draw's
+    temporaries stay small beside the stack, as they do at full width; one
+    gradient beforehand makes the matmul library's workspaces."""
+    from repro_torch.core import engine as eng
+    from repro_torch.core import prng
+    from repro_torch.core.btard_sgd import BTARDTrainer, TrainerConfig
+    from repro_torch.core.protocol import AttackConfig
+    from repro_torch.models.workload import classification_setup
+
+    monkeypatch.setattr(prng, "NORMAL_BLOCK", 2**16)
+    loss_fn, params0, make_batch, _ = classification_setup(dim=2**18,
+                                                           device=cuda)
+    batches = [make_batch(i, 0, False) for i in range(8)]
+
+    def batch_fn(peer, step, flipped):
+        return batches[peer]
+
+    tr = BTARDTrainer(loss_fn, params0, batch_fn, TrainerConfig(
+        n_peers=8, byzantine=(7,), attack=AttackConfig(kind="sign_flip"),
+        clip_iters=5, m_validators=2, device=cuda))
+    n, d = 8, tr.d
+    stack_bytes, row_bytes = n * d * 4, d * 4
+    flips = eng.flip_mask(tr.engine_config, tr.state, tr.byz_mask)
+    tr._grad(tr.params, batches[0])  # makes the library's workspaces
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    G, H = tr._grads_fn()(tr.params, 0, flips)
+    torch.cuda.synchronize()
+    assert H is G and G.shape == (n, d)
+    assert torch.cuda.max_memory_allocated() - base <= stack_bytes + 2 * row_bytes
+    for i in (0, 5):
+        assert torch.equal(G[i], tr._grad(tr.params, batch_fn(i, 0, False)))
+
+    Gc = G.clone()
+    st_copy, out_copy = eng.protocol_step(tr.engine_config, tr.state,
+                                          tr.byz_mask, Gc, Gc)
+    del Gc
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    honest_row = G[7].clone()
+    st_don, out_don = eng.protocol_step(tr.engine_config, tr.state,
+                                        tr.byz_mask, G, G, donate=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base - row_bytes < stack_bytes
+    assert torch.equal(G[7], -1000.0 * honest_row)
+    for name in out_copy._fields:
+        a, b = getattr(out_don, name), getattr(out_copy, name)
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b), name
+    for name in ("active", "validator", "prev_agg", "ban_step", "ban_reason",
+                 "accused_count", "last_checked"):
+        assert torch.equal(getattr(st_don, name), getattr(st_copy, name)), name

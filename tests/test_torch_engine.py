@@ -290,3 +290,60 @@ def test_spec_grammar_round_trips_like_jax(text):
     assert TSpec.parse(t.canonical()) == t
     assert t.params == j.params
     assert t.param_dict() == j.param_dict()
+
+
+def _assert_same_bits(a, b, what):
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(
+            a.reshape(-1).view(torch.uint8) if a.is_floating_point() else a,
+            b.reshape(-1).view(torch.uint8) if b.is_floating_point() else b
+        ), what
+    else:
+        assert a == b, what
+
+
+@pytest.mark.parametrize("attack, spec", [
+    ("sign_flip", "fixed"), ("sign_flip", "verified_mean"),
+    ("false_accuse", "fixed"), ("end_step", "fixed"),
+    ("label_flip", "fixed"), ("compressed", "compressed_butterfly_clip")])
+def test_donated_stack_gives_the_copying_steps_bits(attack, spec):
+    """protocol_step(donate=True) zeroes and attacks the stack in place
+    (one row at a time) and gives every output and state field of the
+    copying step bit for bit, over 3 steps from a state where attacker 6
+    is already out (its row zeroed); a configuration it does not cover
+    takes the copying path."""
+    _, tcfg = _configs("sign_flip" if attack == "compressed" else attack,
+                       spec)
+    byz = torch.from_numpy(_byz())
+    st0 = teng.init_state(tcfg, seed=3, device="cpu")
+    active = st0.active.clone()
+    active[6] = 0.0
+    lifecycle = st0.lifecycle.clone()
+    lifecycle[6] = teng.SLOT_BANNED
+    st_copy = st_don = st0._replace(active=active, lifecycle=lifecycle,
+                                    validator=st0.validator * active)
+    for t in range(3):
+        G = torch.from_numpy(_grads(t))
+        st_copy, out_copy = teng.protocol_step(tcfg, st_copy, byz, G, G)
+        Gd = G.clone()
+        st_don, out_don = teng.protocol_step(tcfg, st_don, byz, Gd, Gd,
+                                             donate=True)
+        for name in out_copy._fields:
+            _assert_same_bits(getattr(out_don, name), getattr(out_copy, name),
+                              f"step {t} out.{name}")
+        for name in st_copy._fields:
+            _assert_same_bits(getattr(st_don, name), getattr(st_copy, name),
+                              f"step {t} state.{name}")
+        flipped = (attack in ("sign_flip", "false_accuse")
+                   or (attack == "end_step" and t < 2))
+        engaged = active if t == 0 else prev_active
+        assert engaged[6] == 0
+        for i in range(N):
+            if attack == "compressed" or engaged[i] > 0 and not (
+                    flipped and i in BYZ):
+                assert torch.equal(Gd[i], G[i]), (t, i)
+            elif engaged[i] > 0:
+                assert torch.equal(Gd[i], -1000.0 * G[i]), (t, i)
+            else:
+                assert not Gd[i].any(), (t, i)
+        prev_active = st_copy.active

@@ -17,8 +17,10 @@ by the two frameworks, through 4 optimizer steps), the slots' lifecycle
 equal. Cases: butterfly_clip and verified:mean one step per call; the
 chunked path (warm-started butterfly_clip, 2 rounds per chunk) with device
 data and with ``--host-data``; butterfly_clip under churn (slot 1 leaves
-at step 1 and a fresh identity joins it at step 2 on probation); and the
-baseline defense (the gradient of the global batch's loss, no bans).
+at step 1 and a fresh identity joins it at step 2 on probation); the
+baseline defense (the gradient of the global batch's loss, no bans); and
+butterfly_clip on a reduced Qwen3-1.7B (``--arch qwen3-1.7b``: RoPE,
+QK-norm, GQA, tied embeddings).
 
 Also: the CLI on ``--device cpu`` prints the JAX launcher's lines and its
 SUMMARY; ``--backend dist`` over gloo (2 processes inside one subprocess,
@@ -65,6 +67,7 @@ CASES = {
     "churn": ["--aggregator", "butterfly_clip", "--churn",
               "leave@1:1,join@2:1", "--probation-steps", "1"],
     "baseline_mean": ["--defense", "mean"],
+    "qwen3_fixed": ["--arch", "qwen3-1.7b", "--aggregator", "butterfly_clip"],
 }
 
 
@@ -90,13 +93,15 @@ from repro.optim.optimizers import apply_updates
 cases, out_path = json.loads(sys.argv[1])
 N, STEPS, SEQ, BATCH, TAU, ITERS, LR = 4, 4, 16, 8, 1.0, 5, 3e-2
 BYZ = [3]
-model = get_model("albert-large", reduced=True)
-params0 = model.init_params(jax.random.key(0))
-out = {f"leaf{i}": np.asarray(l)
-       for i, l in enumerate(jax.tree.leaves(params0))}
-pipe = TokenPipeline(model.cfg.vocab_size, SEQ, BATCH)
+out, setups = {}, {}
+for arch in sorted({c[-1] for c in cases.values()}):
+    model = get_model(arch, reduced=True)
+    params0 = model.init_params(jax.random.key(0))
+    out.update({f"{arch}/leaf{i}": np.asarray(l)
+                for i, l in enumerate(jax.tree.leaves(params0))})
+    setups[arch] = (params0, TokenPipeline(model.cfg.vocab_size, SEQ, BATCH),
+                    jax.jit(jax.value_and_grad(model.loss_fn, has_aux=True)))
 mesh = jax.make_mesh((N,), ("peers",))
-grad_fn = jax.jit(jax.value_and_grad(model.loss_fn, has_aux=True))
 opt = sgd(LR, momentum=0.9, nesterov=True)
 byz_mask = jnp.asarray([1.0 if i in BYZ else 0.0 for i in range(N)])
 
@@ -113,7 +118,8 @@ def baseline(name, churn, probation):
     out[name + "/lifecycle"] = np.full(N, 2, np.int64)
 
 
-for name, (agg_text, n_scan, defense, churn, probation) in cases.items():
+for name, (agg_text, n_scan, defense, churn, probation, arch) in cases.items():
+    params0, pipe, grad_fn = setups[arch]
     if defense == "mean":
         baseline(name, churn, probation)
         continue
@@ -215,7 +221,8 @@ def jax_ref(tmp_path_factory):
     cases = {name: (_flag(argv, "--aggregator", "butterfly_clip"),
                     int(_flag(argv, "--scan-steps", 0)),
                     _flag(argv, "--defense", "btard"), _flag(argv, "--churn"),
-                    int(_flag(argv, "--probation-steps", 3)))
+                    int(_flag(argv, "--probation-steps", 3)),
+                    _arch(argv))
              for name, argv in CASES.items()}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run(
@@ -227,12 +234,18 @@ def jax_ref(tmp_path_factory):
     return dict(np.load(tmp / "ref.npz"))
 
 
-def _jax_params(ref):
+def _arch(argv):
+    """The case's ``--arch``: its own, which overrides BASE's."""
+    return _flag(argv, "--arch", _flag(BASE, "--arch"))
+
+
+def _jax_params(ref, arch="albert-large"):
     """The JAX init carried onto the port's parameter tree (same leaf
     order: dict keys sorted)."""
-    template = lm_model("albert-large", reduced=True).init_params(tkey(0))
+    template = lm_model(arch, reduced=True).init_params(tkey(0))
     n = len(tree_leaves(template))
-    leaves = [torch.from_numpy(np.array(ref[f"leaf{i}"])) for i in range(n)]
+    leaves = [torch.from_numpy(np.array(ref[f"{arch}/leaf{i}"]))
+              for i in range(n)]
     assert [t.shape for t in leaves] == [t.shape for t in
                                          tree_leaves(template)]
     return tree_unflatten(template, leaves)
@@ -241,7 +254,7 @@ def _jax_params(ref):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_launch_train_matches_composed_jax_reference(jax_ref, case, capsys):
     args = ttrain.build_parser().parse_args(BASE + CASES[case])
-    rec = ttrain.run(args, params0=_jax_params(jax_ref))
+    rec = ttrain.run(args, params0=_jax_params(jax_ref, args.arch))
     losses = np.asarray(rec["losses"])
     want = jax_ref[case + "/losses"]
     assert losses.shape == want.shape == (4,)

@@ -5,6 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import prng
 
@@ -81,3 +82,26 @@ def test_engine_key_chain_seed_and_directions_equal_jax():
         np.testing.assert_allclose(
             tbf.get_random_directions(ts, 4, 300).numpy(),
             np.asarray(jbf.get_random_directions(js, 4, 300)), atol=1e-6)
+
+
+@pytest.mark.parametrize("shape, block", [((3, 37), 16), ((4, 300), 7),
+                                          ((5000,), 1000)])
+def test_blocked_normal_is_the_one_shot_draw_bitwise(shape, block,
+                                                     monkeypatch):
+    """A draw above ``NORMAL_BLOCK`` elements goes in blocks through
+    ``offset``: the bits of one draw, at any block size."""
+    tk = prng.key(11)
+    one, one5 = prng.normal(tk, shape), prng.normal(tk, shape, offset=5)
+    monkeypatch.setattr(prng, "NORMAL_BLOCK", block)
+    assert torch.equal(prng.normal(tk, shape), one)
+    assert torch.equal(prng.normal(tk, shape, offset=5), one5)
+
+
+def test_blocked_directions_equal_the_one_shot_draw(monkeypatch):
+    """So do the unit directions z drawn under a small ``NORMAL_BLOCK``."""
+    from repro_torch.core import butterfly as tbf
+
+    seed = prng.randint(prng.key(2), (), 0, 2**31 - 1)
+    one = tbf.get_random_directions(seed, 4, 300)
+    monkeypatch.setattr(prng, "NORMAL_BLOCK", 64)
+    assert torch.equal(tbf.get_random_directions(seed, 4, 300), one)
