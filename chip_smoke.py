@@ -107,8 +107,16 @@ Phases, each printing its own line:
      6 steps: #1 exactly once a step, the attacker banned, no honest
      accusation, finite norms, the peak memory, then #1 at that (4, d)
      stack held against its plain version one partition at a time and
-     timed (``at_qwen3`` in #1's row);
-  10. the launches of every kernel per path.
+     timed (``at_qwen3`` in #1's row); (r) the MoE/MLA family at full
+     width: DeepSeek-V2-Lite at its published widths with its depth cut
+     to 3 of 27 layers (the dense MLA layer 0 and 2 of the 26 MLA + MoE
+     repeats; d = 1,670,135,296) through the same trainer and lines as
+     (q), 4 peers, one sign-flip attacker, 6 steps: #1 exactly once a step
+     and no other kernel, the attacker banned, no honest accusation,
+     finite norms and aux_loss, the peak memory, the step's parts and the
+     share of routed tokens capacity dropped at step 0 per MoE layer;
+  10. the launches of every kernel per path (#1's on (q) and (r) beside
+     its row: ``launches_qwen3``, ``launches_deepseek``).
 
 Before the last line it prints the script's wall time, the card's name
 and power limit and a JSON object with each kernel's numbers; the last
@@ -158,6 +166,11 @@ KERNELS = {  # wrapper's launch-count name -> (TPU kernel it replaces, source)
 }
 D_FULL = 78_223_360  # ALBERT-large's d
 D_QWEN3 = 1_720_574_976  # Qwen3-1.7B's d (the JAX package's param_count)
+# DeepSeek-V2-Lite at its published widths with 2 of its 26 MLA + MoE
+# repeats beside the dense MLA layer 0 (the JAX package's param_count)
+D_DEEPSEEK = 1_670_135_296
+DEEPSEEK_REPEATS = 2
+D_DEEPSEEK_FULL = 15_706_484_224  # all 26 repeats
 # the Fig. 9 sweep's runs to tolerance at full width are plain torch, ~12
 # ms an iteration over the 5 GB stack: capped at the trusted-server
 # default instead of the reference's 3000
@@ -1064,11 +1077,14 @@ def hold_adaptive(label, launched, iters, cap):
 
 
 def run_path(label, argv, attack=None, expect=(), breakdown=False,
-             launches=None, bans=True, d=D_FULL):
+             launches=None, bans=True, d=D_FULL, setup=None):
     """Drive one path through the launcher with the launch counts set to 0
     just before and read just after, and the card's peak memory over the
     run (``torch.cuda.max_memory_allocated``) printed; ``d``: the model's
-    parameter count the run must report. ``expect``: kernels that must have
+    parameter count the run must report; ``setup``: a function that makes
+    the ``(loss_fn, params0, batch_fn, model)`` quadruple the launcher then
+    trains in place of the one its flags name (``run_model`` calls it).
+    ``expect``: kernels that must have
     launched; ``launches``: the exact count of every kernel that may
     launch, all others 0, and then the attacker must be banned (``bans``)
     or, for a non-verifiable baseline, no one (``bans=False``). Where #3
@@ -1084,7 +1100,7 @@ def run_path(label, argv, attack=None, expect=(), breakdown=False,
         attack = AttackConfig(kind=args.attack, delay=5, **attack)
     torch.cuda.reset_peak_memory_stats()
     kc.reset_launch_counts()
-    tr, summary, seconds = tb.run_model(args, attack=attack)
+    tr, summary, seconds = tb.run_model(args, attack=attack, setup=setup)
     torch.cuda.synchronize()
     counts = dict(kc.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1604,6 +1620,95 @@ def run_qwen3(label, stats):
     return counts
 
 
+DEEPSEEK = ["--model", "deepseek-v2-lite-16b", "--full", "--peers", "4",
+            "--byzantine", "1", "--attack", "sign_flip", "--validators",
+            "2", "--clip-iters", str(CLIP_ITERS), "--seq", "128", "--batch",
+            "4", "--steps", "6"]
+
+
+def moe_drop_shares(model, params, batch_fn, peers):
+    """The share of routed (token, k) pairs that capacity dropped in each
+    MoE layer, over the peers' step-0 batches at ``params``: one forward a
+    peer without gradients, with ``moe.route`` wrapped to keep each
+    layer's keeps."""
+    from repro_torch.models import moe
+
+    route, keeps = moe.route, []
+
+    def recording(p, cfg, x):
+        r = route(p, cfg, x)
+        keeps.append(r.keeps)
+        return r
+
+    moe.route = recording
+    try:
+        with torch.no_grad():
+            for peer in range(peers):
+                model.loss_fn(params, batch_fn(peer, 0, False))
+    finally:
+        moe.route = route
+    n_layers = len(keeps) // peers
+    return [1.0 - float(torch.stack([keeps[i * n_layers + j].float().mean()
+                                     for i in range(peers)]).mean())
+            for j in range(n_layers)]
+
+
+def run_deepseek(label):
+    """(r) the MoE/MLA family at full width: DeepSeek-V2-Lite at its
+    published widths (MLA with kv_lora_rank 512, 64 routed experts top-6
+    at 1408 and 2 shared, vocab 102,400, bf16 storage, float32 flat master
+    params), its depth cut to the dense MLA layer 0 and 2 of the 26 MLA +
+    MoE repeats (d = 1,670,135,296), through ``train_byzantine --model
+    deepseek-v2-lite-16b --full``'s settings (4 peers, sign flip on peer
+    3, 2 validators, 5 clip iterations, seq 128, batch 4, 6 steps) with the
+    cut model handed to ``run_model``: #1 exactly once a step and no other
+    kernel, the attacker banned, no honest peer accused or banned, finite
+    norms and a finite ``aux_loss`` in every gradient, the peak memory,
+    the step median, one more step by part, and the share of routed
+    tokens capacity dropped at step 0 in each MoE layer. Returns the
+    launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.workload import model_setup
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    cut = dataclasses.replace(cfg, n_repeats=DEEPSEEK_REPEATS)
+    model = Model(cut)
+    print(f"{label}: {cfg.name} at its published widths, depth cut from "
+          f"{cfg.n_layers} layers (dense MLA layer 0 + {cfg.n_repeats} MLA "
+          f"+ MoE repeats) to {cut.n_layers} (n_repeats {cfg.n_repeats} -> "
+          f"{DEEPSEEK_REPEATS}): the full depth's d = {D_DEEPSEEK_FULL:,} "
+          f"would need a {4 * 4 * D_DEEPSEEK_FULL / 1e9:.0f} GB float32 "
+          "stack for 4 peers", flush=True)
+    aux, drops = [], []
+
+    def loss_fn(params, batch):
+        loss, metrics = model.loss_fn(params, batch)
+        aux.append(metrics["aux_loss"].detach())
+        return loss
+
+    def setup():
+        _, params0, batch_fn, _ = model_setup(model, seq_len=128,
+                                              batch_size=4, device="cuda")
+        drops.extend(moe_drop_shares(model, params0, batch_fn, peers=4))
+        return loss_fn, params0, batch_fn, model
+
+    _, counts = run_path(label, DEEPSEEK, breakdown=True,
+                         launches={"butterfly_clip_fused": 6}, d=D_DEEPSEEK,
+                         setup=setup)
+    aux = torch.stack(aux).cpu()
+    check(bool(torch.isfinite(aux).all()),
+          f"{label}: non-finite aux_loss {aux.tolist()}")
+    print(f"{label}: aux_loss over {len(aux)} gradients in "
+          f"[{float(aux.min()):.6f}, {float(aux.max()):.6f}], step 0 "
+          f"{[round(float(a), 6) for a in aux[:4]]}; routed tokens dropped "
+          f"at step 0 by capacity, per MoE layer: {drops}", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def bits(t):
     """A tensor's bits as an integer tensor of its width on the CPU (bit
     equality, not value equality: -0.0, NaN)."""
@@ -1965,6 +2070,9 @@ def main():
                            card))
     # the dense-decoder family at full width on the main path
     paths["qwen3"] = run_qwen3("phase 9 (q) qwen3-1.7b --full", stats)
+    # the MoE/MLA family at full width, depth cut, on the main path
+    paths["deepseek"] = run_deepseek("phase 9 (r) deepseek-v2-lite-16b "
+                                     "--full")
     print("phase 10: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
@@ -1996,6 +2104,7 @@ def main():
             row["iters"] = sum(adaptive_sum["clip_iters"])
         if name == "butterfly_clip_fused":
             row["launches_qwen3"] = paths["qwen3"][name]
+            row["launches_deepseek"] = paths["deepseek"][name]
         if name in ("verify_tables", "adaptive_clip_step"):
             # the crash drill's legs: A uninterrupted, B halted, C resumed
             row["launches_drill"] = {

@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Ported so far: ALBERT-large (the shared dense stack) and the dense
+Ported so far: ALBERT-large (the shared dense stack), the dense
 decoders Qwen3-1.7B, ChatGLM3-6B and Qwen1.5-110B (RoPE, QKV bias,
-QK-norm, unshared layers); the other families of the JAX package's zoo
-wait for ROADMAP item 13.
+QK-norm, unshared layers) and the MoE decoders DeepSeek-V2-Lite-16B (MLA,
+shared experts) and DBRX-132B; the other families of the JAX package's
+zoo wait for ROADMAP item 13.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "chatglm3-6b": "chatglm3_6b",
     "albert-large": "albert_large",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 

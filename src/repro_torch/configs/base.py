@@ -31,6 +31,9 @@ class LayerSpec:
 
 
 SA = LayerSpec("attn_full", "dense")
+SA_MOE = LayerSpec("attn_full", "moe")
+MLA_D = LayerSpec("mla", "dense")
+MLA_MOE = LayerSpec("mla", "moe")
 
 
 @dataclass(frozen=True)
@@ -120,6 +123,13 @@ class ModelConfig:
 
     def validate(self) -> None:
         assert self.n_layers > 0, self.name
+        for spec in self.layers:
+            if spec.mlp == "moe":
+                assert self.n_experts > 0 and self.top_k > 0, self.name
+            if spec.mixer == "mla":
+                assert self.kv_lora_rank > 0, self.name
+            if spec.mixer == "ssm":
+                assert self.ssm_state > 0, self.name
         if self.n_heads:
             assert self.n_heads % max(self.n_kv_heads, 1) == 0, self.name
 

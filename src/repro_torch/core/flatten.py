@@ -25,17 +25,21 @@ def tree_leaves(tree):
 
 
 def tree_unflatten(template, leaves):
-    """Rebuild ``template``'s structure from leaves in ``tree_leaves`` order."""
-    it = iter(leaves)
+    """Rebuild ``template``'s structure from leaves in ``tree_leaves`` order.
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
+    A module-level recursion: a nested function that calls itself would
+    hold its own closure cell, a reference cycle through the leaves, so
+    every call's leaves (a model's weights, once a gradient) would outlive
+    it until the cyclic collector ran."""
+    return _build(template, iter(leaves))
 
-    return build(template)
+
+def _build(t, it):
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
 
 class FlatBoundary:

@@ -206,6 +206,8 @@ def normal(k: torch.Tensor, shape=(), offset: int = 0) -> torch.Tensor:
     draw goes in blocks of flat elements written into the float32 result,
     the bits of one draw."""
     shape = tuple(shape)
+    if k.device.type == "meta":  # shapes only (``Model.param_count``)
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     size = math.prod(shape)
     if size <= NORMAL_BLOCK:
         return _normal(k, shape, offset)

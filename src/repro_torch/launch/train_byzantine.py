@@ -5,9 +5,10 @@ same flags and printed lines, plus ``--device`` (default ``cuda``).
 Without ``--model`` it runs the toy gaussian-mixture classifier through
 the host loop (``BTARDTrainer.run``): 16 peers, the last 7 Byzantine,
 attack from step 10, ``sgd(0.3, momentum=0.9)``, 60 steps, printing the
-accuracy and the bans. ``--model`` trains a zoo LM (``albert_large``, or
-a dense decoder: ``qwen3-1.7b``, ``chatglm3-6b``, ``qwen1.5-110b``)
-through the scanned engine (``run_scan``, 4 peers, one attacker) and
+accuracy and the bans. ``--model`` trains a zoo LM (``albert_large``, a
+dense decoder: ``qwen3-1.7b``, ``chatglm3-6b``, ``qwen1.5-110b``, or an
+MoE decoder: ``deepseek-v2-lite-16b``, ``dbrx-132b``) through the scanned
+engine (``run_scan``, 4 peers, one attacker) and
 prints one line per step and a ``SUMMARY {...}`` line; ``--full`` is the
 published width, else the reduced smoke variant.
 
@@ -63,8 +64,9 @@ def build_parser():
     ap.add_argument("--validators", type=int, default=2)
     ap.add_argument("--model", default=None, metavar="ARCH",
                     help="train the LM (albert_large, qwen3-1.7b, "
-                         "chatglm3-6b, qwen1.5-110b) through the scanned "
-                         "engine instead of the toy classifier")
+                         "chatglm3-6b, qwen1.5-110b, deepseek-v2-lite-16b, "
+                         "dbrx-132b) through the scanned engine instead of "
+                         "the toy classifier")
     ap.add_argument("--aggregator", default=None,
                     help="AggregatorSpec string (overrides --defense), e.g. "
                          "butterfly_clip:warm_start=true,adaptive_tol=1e-4, "
@@ -84,15 +86,20 @@ def build_parser():
     return ap
 
 
-def run_model(args, attack=None):
+def run_model(args, attack=None, setup=None):
     """Scanned BTARD over a real LM; prints the per-step lines and the
     SUMMARY line. ``attack`` overrides the AttackConfig built from the
-    flags (e.g. to switch the aggregator attack on). Returns (trainer,
-    summary, seconds of each step)."""
+    flags (e.g. to switch the aggregator attack on); ``setup``, a function
+    that makes the ``(loss_fn, params0, batch_fn, model)`` quadruple to
+    train in place of the workload ``--model``, ``--full``, ``--dtype``,
+    ``--seq`` and ``--batch`` name (e.g. a zoo config with its depth cut):
+    called here, so that only this frame holds the initial parameters,
+    which are dropped once flattened. Returns (trainer, summary, seconds
+    of each step)."""
     peers = args.peers or 4
     n_byz = 1 if args.byzantine is None else args.byzantine
     steps = args.steps or 6
-    loss_fn, params0, batch_fn, model = lm_setup(
+    loss_fn, params0, batch_fn, model = setup() if setup else lm_setup(
         args.model, seq_len=args.seq, batch_size=args.batch,
         reduced=not args.full, dtype=args.dtype, device=args.device)
     cfg = TrainerConfig(

@@ -1,10 +1,13 @@
-"""Causal multi-head self-attention (GQA layout) for the ported models.
+"""Causal multi-head self-attention for the ported models: GQA and
+DeepSeek's multi-head latent attention (MLA).
 
-Counterpart of ``repro.models.attention``'s ``gqa_init``/``gqa_apply`` in
-training mode: the optional QKV bias, the QK-norm over the head dim and
-RoPE (``standard``, GLM's ``half``, or ``none`` for ALBERT's learned
-positions) in the JAX package's order. Prefill, decode and the KV caches
-are ROADMAP item 15's. Written with
+Counterpart of ``repro.models.attention``'s ``gqa_init``/``gqa_apply`` and
+``mla_init``/``mla_apply`` in training mode: the optional QKV bias, the
+QK-norm over the head dim and RoPE (``standard``, GLM's ``half``, or
+``none`` for ALBERT's learned positions) in the JAX package's order; MLA's
+compressed KV (a low-rank latent, RMS-normed, expanded per head) with a
+shared roped key. Prefill, decode and the KV caches (MLA's absorbed
+decode among them) are ROADMAP item 15's. Written with
 matmul and softmax rather than a fused attention call, so that its
 backward is deterministic; scores and softmax run in float32, as the JAX
 package's ``preferred_element_type`` asks.
@@ -43,7 +46,8 @@ def gqa_init(key, cfg, spec):
 
 
 def causal_attention(q, k, v):
-    """q, k, v: (B, S, H, D) -> (B, S, H, D); softmax in float32."""
+    """q, k: (B, S, H, D); v: (B, S, H, Dv) -> (B, S, H, Dv); softmax in
+    float32, scaled by 1/sqrt(D), q's head dim (MLA: D = 192, Dv = 128)."""
     D = q.shape[-1]
     S = q.shape[1]
     scores = torch.einsum("bshd,bthd->bhst", q.to(torch.float32),
@@ -81,3 +85,53 @@ def gqa_apply(p, cfg, spec, x, pos):
         v = v.repeat_interleave(H // Kv, dim=2)
     y = causal_attention(q, k, v).reshape(B, S, H * D)
     return y @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+def mla_init(key, cfg, spec):
+    dt = cdtype(cfg)
+    ks = prng.split(key, 4)
+    H = cfg.n_heads
+    qd = cfg.nope_head_dim + cfg.rope_head_dim
+    return {
+        "wq": dense_init(ks[0], cfg.d_model, H * qd, dt),
+        "kv_a": dense_init(ks[1], cfg.d_model,
+                           cfg.kv_lora_rank + cfg.rope_head_dim, dt),
+        "kv_norm": torch.ones((cfg.kv_lora_rank,), dtype=torch.float32,
+                              device=key.device),
+        "kv_b": dense_init(ks[2], cfg.kv_lora_rank,
+                           H * (cfg.nope_head_dim + cfg.v_head_dim), dt),
+        "wo": dense_init(ks[3], H * cfg.v_head_dim, cfg.d_model, dt),
+    }
+
+
+def _mla_compress(p, cfg, x, pos):
+    """Returns (c_kv normed, k_rope roped): (B, S, rank), (B, S, rope)."""
+    a = x @ p["kv_a"]
+    c_kv, k_rope = a[..., :cfg.kv_lora_rank], a[..., cfg.kv_lora_rank:]
+    c_kv = rms_head_norm(p["kv_norm"], c_kv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], pos[None, :], cfg)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_apply(p, cfg, spec, x, pos):
+    """MLA self-attention of a block in training mode: the latent expanded
+    to H keys and values, each key the head's nope part and the shared
+    roped part. x: (B, S, d) -> (B, S, d); pos: (S,) positions."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, pos[None, :], cfg)
+
+    kv_b = p["kv_b"].reshape(cfg.kv_lora_rank, H, nd + vd)
+    w_k, w_v = kv_b[..., :nd], kv_b[..., nd:]
+    c_kv, k_rope = _mla_compress(p, cfg, x, pos)
+    k_nope = torch.einsum("btr,rhn->bthn", c_kv, w_k)
+    v = torch.einsum("btr,rhv->bthv", c_kv, w_v)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)], -1)
+    o = causal_attention(torch.cat([q_nope, q_rope], -1), k, v)
+    return o.reshape(B, S, H * vd) @ p["wo"]

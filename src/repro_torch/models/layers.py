@@ -2,11 +2,12 @@
 QK-norm, the dense MLP, RoPE, embeddings with learned positions, and the
 output projection.
 
-Counterpart of ``repro.models.layers``, restricted to what ALBERT-large
-and the dense decoders run. Parameters are nested dicts of tensors with the JAX package's names,
-shapes and dtypes (``models.convert`` maps one onto the other). Weights are
-drawn with the port's threefry generator (``core.prng``), so a seed gives
-the JAX package's weights up to the last bit of ``normal``.
+Counterpart of ``repro.models.layers``, restricted to what ALBERT-large,
+the dense decoders and the MoE/MLA decoders run. Parameters are nested
+dicts of tensors with the JAX package's names, shapes and dtypes
+(``models.convert`` maps one onto the other). Weights are drawn with the
+port's threefry generator (``core.prng``), so a seed gives the JAX
+package's weights up to the last bit of ``normal``.
 """
 from __future__ import annotations
 
@@ -67,15 +68,18 @@ def rms_head_norm(scale, x, eps=1e-6):
 # ---------------------------------------------------------------------------
 # Dense MLP
 # ---------------------------------------------------------------------------
-def mlp_init(key, cfg):
+def mlp_init(key, cfg, d_ff=None):
+    """The MLP at ``d_ff`` (default ``cfg.d_ff``; the MoE's shared experts
+    pass their own width)."""
+    d_ff = d_ff or cfg.d_ff
     dt = cdtype(cfg)
     k1, k2, k3 = prng.split(key, 3)
     p = {
-        "wi": dense_init(k1, cfg.d_model, cfg.d_ff, dt),
-        "wdown": dense_init(k3, cfg.d_ff, cfg.d_model, dt),
+        "wi": dense_init(k1, cfg.d_model, d_ff, dt),
+        "wdown": dense_init(k3, d_ff, cfg.d_model, dt),
     }
     if cfg.glu:
-        p["wg"] = dense_init(k2, cfg.d_model, cfg.d_ff, dt)
+        p["wg"] = dense_init(k2, cfg.d_model, d_ff, dt)
     return p
 
 

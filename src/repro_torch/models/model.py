@@ -1,9 +1,11 @@
-"""Public model API of the port: ``init_params`` and ``loss_fn``.
+"""Public model API of the port: ``init_params``, ``param_count`` and
+``loss_fn``.
 
 Counterpart of ``repro.models.model.Model`` in training mode. A batch is
 ``{"tokens": (B, S+1) int}``; the loss is the next-token cross-entropy with
 the JAX package's ceiling-chunked evaluation (never more than
-``LOSS_CHUNK`` positions of float32 logits at once).
+``LOSS_CHUNK`` positions of float32 logits at once), plus the MoE
+load-balance loss where the model has experts.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
+from repro_torch.core.flatten import tree_leaves
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     apply_norm,
@@ -26,10 +29,6 @@ LOSS_CHUNK = 2048
 class Model:
     def __init__(self, cfg):
         cfg.validate()
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: experts (MoE) are not ported yet (ROADMAP "
-                "item 13); the dense stacks are")
         self.cfg = cfg
 
     def init_params(self, key):
@@ -41,8 +40,16 @@ class Model:
         p["final_norm"] = norm_init(cfg, key.device)
         return p
 
+    def param_count(self):
+        """The parameters' count from their shapes alone: the init run on
+        the meta device, which allocates nothing."""
+        params = self.init_params(prng.key(0, device="meta"))
+        return sum(t.numel() for t in tree_leaves(params))
+
     def loss_fn(self, params, batch):
-        """Mean next-token cross-entropy; returns (loss, metrics)."""
+        """Mean next-token cross-entropy, plus ``router_aux_coef`` times the
+        MoE load-balance loss where there are experts; returns (loss,
+        {"loss": the cross-entropy, "aux_loss": the summed aux})."""
         cfg = self.cfg
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
@@ -50,7 +57,7 @@ class Model:
         pos = torch.arange(S, device=tokens.device)
         x = embed_tokens(params, cfg, inputs,
                          pos=pos if cfg.learned_pos else None)
-        x = tfm.stack_apply(params, cfg, x, pos)
+        x, aux = tfm.stack_apply(params, cfg, x, pos)
         x = apply_norm(params["final_norm"], cfg, x)
 
         n_chunks = -(-S // LOSS_CHUNK)
@@ -70,5 +77,8 @@ class Model:
             total = total + checkpoint(chunk_loss, x[:, sl], targets[:, sl],
                                        *emb.values(), use_reentrant=False)
         loss = total / (B * S)
-        return loss, {"loss": loss}
+        metrics = {"loss": loss, "aux_loss": aux}
+        if cfg.n_experts:
+            loss = loss + cfg.router_aux_coef * aux
+        return loss, metrics
 

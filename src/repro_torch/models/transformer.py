@@ -1,11 +1,12 @@
 """Block assembly for the ported models: prefix blocks, then the repeated
 pattern, then suffix blocks. The pattern's parameters are either one set
 applied ``n_repeats`` times (ALBERT's cross-layer sharing) or stacked
-along a leading ``n_repeats`` axis, one slice per repeat (the dense
-decoders).
+along a leading ``n_repeats`` axis, one slice per repeat (the decoders).
 
-Counterpart of ``repro.models.transformer`` for dense self-attention
-blocks. The JAX package scans the pattern; here it is a Python loop.
+Counterpart of ``repro.models.transformer`` for self-attention blocks
+(GQA or MLA) with a dense or MoE MLP. The JAX package scans the pattern;
+here it is a Python loop. Every apply returns the summed MoE load-balance
+loss beside the activations.
 """
 from __future__ import annotations
 
@@ -14,32 +15,49 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.flatten import tree_leaves, tree_unflatten
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_init, norm_init
+
+_MIXERS = {
+    "attn_full": (attn.gqa_init, attn.gqa_apply),
+    "mla": (attn.mla_init, attn.mla_apply),
+}
 
 
 def _check_spec(spec):
-    if spec.mixer != "attn_full" or spec.mlp != "dense" or spec.cross:
+    if spec.mixer not in _MIXERS or spec.cross:
         raise NotImplementedError(
-            f"block {spec} is not ported: only dense self-attention blocks "
-            "(attn_full + dense MLP) exist so far; local and cross "
-            "attention, MLA, SSM, RG-LRU and MoE are ROADMAP item 13's")
+            f"block {spec} is not ported: only self-attention blocks (GQA "
+            "or MLA, with a dense or MoE MLP) exist so far; local and "
+            "cross attention, SSM and RG-LRU are ROADMAP item 13's")
 
 
 def block_init(key, cfg, spec):
     _check_spec(spec)
     ks = prng.split(key, 4)
-    return {
-        "norm1": norm_init(cfg, key.device),
-        "mixer": attn.gqa_init(ks[0], cfg, spec),
-        "norm2": norm_init(cfg, key.device),
-        "mlp": mlp_init(ks[1], cfg),
-    }
+    p = {"norm1": norm_init(cfg, key.device),
+         "mixer": _MIXERS[spec.mixer][0](ks[0], cfg, spec)}
+    if spec.mlp == "dense":
+        p["norm2"] = norm_init(cfg, key.device)
+        p["mlp"] = mlp_init(ks[1], cfg)
+    elif spec.mlp == "moe":
+        p["norm2"] = norm_init(cfg, key.device)
+        p["moe"] = moe_mod.moe_init(ks[2], cfg)
+    return p
 
 
 def block_apply(p, cfg, spec, x, pos):
+    """Returns (x, aux): aux the MoE's load-balance loss, 0 without one."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(p["norm1"], cfg, x)
-    x = x + attn.gqa_apply(p["mixer"], cfg, spec, h, pos)
-    return x + apply_mlp(p["mlp"], cfg, apply_norm(p["norm2"], cfg, x))
+    x = x + _MIXERS[spec.mixer][1](p["mixer"], cfg, spec, h, pos)
+    if spec.mlp == "dense":
+        x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["norm2"], cfg, x))
+    elif spec.mlp == "moe":
+        y, a = moe_mod.moe_apply(p["moe"], cfg, apply_norm(p["norm2"], cfg, x))
+        x = x + y
+        aux = aux + a
+    return x, aux
 
 
 def _stacked(trees):
@@ -84,12 +102,20 @@ def _repeats(p, cfg):
 
 
 def stack_apply(p, cfg, x, pos):
+    """Returns (x, aux), aux summed over the blocks in the JAX package's
+    order (each repeat's blocks summed, then added to the running sum)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.prefix):
-        x = block_apply(p["prefix"][i], cfg, spec, x, pos)
+        x, a = block_apply(p["prefix"][i], cfg, spec, x, pos)
+        aux = aux + a
     if cfg.pattern and cfg.n_repeats:
         for macro in _repeats(p, cfg):
+            aux_t = torch.zeros_like(aux)
             for i, spec in enumerate(cfg.pattern):
-                x = block_apply(macro[f"l{i}"], cfg, spec, x, pos)
+                x, a = block_apply(macro[f"l{i}"], cfg, spec, x, pos)
+                aux_t = aux_t + a
+            aux = aux + aux_t
     for i, spec in enumerate(cfg.suffix):
-        x = block_apply(p["suffix"][i], cfg, spec, x, pos)
-    return x
+        x, a = block_apply(p["suffix"][i], cfg, spec, x, pos)
+        aux = aux + a
+    return x, aux

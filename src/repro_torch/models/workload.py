@@ -2,10 +2,11 @@
 
 Counterpart of ``repro.models.workload`` and of the JAX package's toy
 ``classification_setup`` (``benchmarks/common.py``, which imports jax, so
-the port keeps its own copy here). ``lm_setup(arch)`` packages a zoo LM as
-the ``(loss_fn, params0, batch_fn, model)`` quadruple that
-``BTARDTrainer`` consumes: per-peer batches from the public-seed
-``TokenPipeline``, parameters from ``Model.init_params``.
+the port keeps its own copy here). ``lm_setup(arch)`` packages a zoo LM
+(``model_setup(model)`` any ``Model``) as the ``(loss_fn, params0,
+batch_fn, model)`` quadruple that ``BTARDTrainer`` consumes: per-peer
+batches from the public-seed ``TokenPipeline``, parameters from
+``Model.init_params``.
 ``classification_setup()`` is the paper's §4.1 controlled workload, a
 linear softmax classifier on a gaussian mixture. Both are entry points:
 they run on the CUDA device unless ``device="cpu"`` is given.
@@ -52,8 +53,17 @@ def lm_setup(arch: str, *, seq_len: int = 32, batch_size: int = 2,
     batch_fn(peer, step, flipped): the public-seed tokens of xi_peer^step;
     ``flipped`` (the label-flip attack) reverses the token stream.
     """
+    return model_setup(lm_model(arch, reduced=reduced, dtype=dtype),
+                       seq_len=seq_len, batch_size=batch_size,
+                       global_seed=global_seed, init_seed=init_seed,
+                       device=device)
+
+
+def model_setup(model, *, seq_len: int = 32, batch_size: int = 2,
+                global_seed: int = 0, init_seed: int = 0, device=None):
+    """``lm_setup`` for a ``Model`` of any configuration (say, a zoo
+    config with its depth cut)."""
     device = resolve_device(device)
-    model = lm_model(arch, reduced=reduced, dtype=dtype)
     pipe = TokenPipeline(model.cfg.vocab_size, seq_len, batch_size,
                          global_seed=global_seed, device=device)
 

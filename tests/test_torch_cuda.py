@@ -17,12 +17,19 @@ the host before every iteration; the wire passes' staged body (#7, #8)
 gives its float32 twins' bits; verified:mean's one pass (#5, #8) gives
 the digests a validator recomputes (#6, #9) against its v, bit for bit.
 A bf16 and f32 tree on the card round-trips through a checkpoint bit for
-bit, onto its example's device. Marked
+bit, onto its example's device. One MoE layer (DeepSeek-V2-Lite's
+routing: 64 experts top-6, 2 shared, tokens dropped) runs forward and
+backward on the card within 1e-5 of the same code on the CPU (each
+gradient within 1e-5 of its largest value), with its
+routing equal and its gradients equal bit for bit over two runs; the
+reduced DeepSeek-V2-Lite trains through ``run_scan`` on the card with #1
+once a step and the CPU run's bans. Marked
 ``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -861,3 +868,90 @@ def test_engine_path_builds_and_attacks_its_stack_in_place_on_card(
     for name in ("active", "validator", "prev_agg", "ban_step", "ban_reason",
                  "accused_count", "last_checked"):
         assert torch.equal(getattr(st_don, name), getattr(st_copy, name)), name
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_card_matches_cpu_and_repeats_bitwise(cuda,
+                                                          monkeypatch):
+    """DeepSeek-V2-Lite's MoE routing (64 experts, top-6, 2 shared,
+    capacity factor 1.25) at d_model 512, float32, batch 4 x 128 tokens:
+    some tokens dropped; the routing equal to the CPU's, y and aux within
+    1e-5 of the CPU's and every gradient within 1e-5 of its largest
+    value, and the gradients of two runs on the card equal bit for bit
+    (the buffer and the combine write each place once, so no float atomic
+    meets two terms)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.flatten import tree_leaves, tree_unflatten
+    from repro_torch.models import moe
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              d_model=512, d_ff_expert=256, dtype="float32")
+    params = moe.moe_init(prng.key(0), cfg)
+    gen = torch.Generator().manual_seed(25)
+    x = torch.randn((4, 128, 512), generator=gen)
+    dy = torch.randn(x.shape, generator=gen)
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_(True)
+                  for t in tree_leaves(params)]
+        xx = x.to(device).requires_grad_(True)
+        p = tree_unflatten(params, leaves)
+        r = moe.route(p, cfg, xx)
+        y, aux = moe.moe_apply(p, cfg, xx)
+        grads = torch.autograd.grad((y * dy.to(device)).sum() + aux,
+                                    leaves + [xx])
+        return r, y.detach(), aux.detach(), grads
+
+    r_cpu, y_cpu, aux_cpu, g_cpu = run("cpu")
+    r1, y1, aux1, g1 = run(cuda)
+    _, _, _, g2 = run(cuda)
+    assert 0 < int((~r_cpu.keeps).sum()) < r_cpu.keeps.numel() // 4
+    for name in ("top_e", "slots", "keeps"):
+        assert torch.equal(getattr(r1, name).cpu(), getattr(r_cpu, name)), name
+    torch.testing.assert_close(y1.cpu(), y_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux1.cpu(), aux_cpu, rtol=1e-5, atol=1e-5)
+    for a, b, c in zip(g1, g2, g_cpu):
+        assert a.is_cuda and torch.equal(a, b)
+        # the weight gradients sum up to 512 products in float32, in
+        # cuBLAS's order on the card: each element within 1e-5 of its
+        # gradient's largest value (12-80 here)
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-5,
+                                   atol=1e-5 * float(c.abs().max()))
+
+
+@pytest.mark.cuda
+def test_reduced_deepseek_run_scan_on_card_bans_as_on_cpu(cuda, monkeypatch):
+    """The reduced DeepSeek-V2-Lite (MLA + dense, MLA + MoE) through
+    ``run_scan`` for 4 steps, 4 peers, a sign flip on peer 3: on the card
+    #1 launches once a step, and the bans, ban steps, reasons and
+    accusations are the CPU run's."""
+    from repro_torch.core.btard_sgd import BTARDTrainer, TrainerConfig
+    from repro_torch.core.protocol import AttackConfig
+    from repro_torch.models.workload import lm_setup
+    from repro_torch.optim import sgd
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    def run(device):
+        loss_fn, params0, batch_fn, _ = lm_setup(
+            "deepseek-v2-lite-16b", seq_len=16, batch_size=2, device=device)
+        tr = BTARDTrainer(loss_fn, params0, batch_fn, TrainerConfig(
+            n_peers=4, byzantine=(3,),
+            attack=AttackConfig(kind="sign_flip", start_step=0, delay=5),
+            tau=1.0, clip_iters=5, m_validators=2, device=device),
+            optimizer=sgd(0.05))
+        tr.run_scan(4)
+        return tr
+
+    before = kc.LAUNCHES["butterfly_clip_fused"]
+    card = run(cuda)
+    assert kc.LAUNCHES["butterfly_clip_fused"] - before == 4
+    cpu = run("cpu")
+    assert [r["banned_now"] for r in card.history] == \
+        [r["banned_now"] for r in cpu.history]
+    assert card.banned == cpu.banned == {3}
+    for a, b in zip(card.history, cpu.history):
+        assert a["accused_peers"] == b["accused_peers"]
+        assert math.isfinite(a["grad_norm"])

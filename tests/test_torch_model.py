@@ -115,3 +115,41 @@ def test_device_batch_tokens_equal_jax(vocab):
         t = tp.device_batch(step, peer)["tokens"]
         assert t.dtype == torch.int32
         np.testing.assert_array_equal(t.numpy(), j)
+
+
+def test_gradient_leaves_die_with_the_call():
+    """The trainer unflattens the flat params into fresh leaves for every
+    gradient; none may outlive the call through a reference cycle (at full
+    width they are gigabytes of the card's memory, freed only whenever
+    the cyclic collector happens to run): with the collector off, no
+    tensor that requires grad is left once a call returns."""
+    import gc
+
+    from repro_torch.core.btard_sgd import BTARDTrainer, TrainerConfig
+
+    _, tm = _models()
+    pipe = TPipeline(512, 16, 2)
+    tr = BTARDTrainer(lambda p, b: tm.loss_fn(p, b)[0],
+                      tm.init_params(prng.key(0)),
+                      lambda peer, step, flipped: pipe.device_batch(step, peer),
+                      TrainerConfig(n_peers=2, device="cpu"))
+
+    def alive():
+        return sum(isinstance(o, torch.Tensor) and o.requires_grad
+                   for o in gc.get_objects())
+
+    out = torch.empty_like(tr.params)
+    tr._grad(tr.params, pipe.device_batch(0, 0), out=out)  # lazy imports
+    gc.collect()
+    gc.disable()
+    try:
+        before = alive()
+        for peer in range(2):
+            tr._grad(tr.params, pipe.device_batch(0, peer), out=out)
+        assert alive() == before
+        leaves = [torch.zeros(3, requires_grad=True) for _ in range(2)]
+        tree_unflatten({"a": [None], "b": None}, leaves)
+        del leaves
+        assert alive() == before
+    finally:
+        gc.enable()
