@@ -115,8 +115,24 @@ Phases, each printing its own line:
      and no other kernel, the attacker banned, no honest accusation,
      finite norms and aux_loss, the peak memory, the step's parts and the
      share of routed tokens capacity dropped at step 0 per MoE layer;
-  10. the launches of every kernel per path (#1's on (q) and (r) beside
-     its row: ``launches_qwen3``, ``launches_deepseek``).
+     (s) the RG-LRU family at its published widths: RecurrentGemma-9B
+     (RG-LRU width 4096, local attention with window 2048, MQA at head
+     dim 256, vocab 256,000) cut to one (RG, RG, LSA) repeat without its
+     2-block prefix (d = 1,705,062,400), seq 4096 (4 query blocks of the
+     windowed attention, a 12-level scan), batch 1, 6 steps; (t) the
+     local-attention family at its published widths: Gemma3-27B (window
+     1024, 32 heads with kv 16, QK-norm, vocab 262,144, soft-cap 30) cut
+     to one LSA layer (d = 1,822,179,328), seq 2048, batch 1, 3 steps;
+     both as (r) through ``run_model``, 4 peers, one sign-flip attacker:
+     #1 exactly once a step and no other kernel, the attacker banned at
+     the step the reduced model bans at on the CPU, no honest accusation,
+     finite losses and norms, the final |g|, the step median, the step's
+     parts (the z draw, the gradients), the peak memory beside the card's
+     name and power limit; (s) also the memory one RG-LRU mixer's forward
+     keeps for its backward at seq 4096;
+  10. the launches of every kernel per path (#1's on (q), (r), (s) and
+     (t) beside its row: ``launches_qwen3``, ``launches_deepseek``,
+     ``launches_recurrentgemma``, ``launches_gemma3``).
 
 Before the last line it prints the script's wall time, the card's name
 and power limit and a JSON object with each kernel's numbers; the last
@@ -171,6 +187,14 @@ D_QWEN3 = 1_720_574_976  # Qwen3-1.7B's d (the JAX package's param_count)
 D_DEEPSEEK = 1_670_135_296
 DEEPSEEK_REPEATS = 2
 D_DEEPSEEK_FULL = 15_706_484_224  # all 26 repeats
+# RecurrentGemma-9B at its published widths cut to one (RG, RG, LSA)
+# repeat without its (RG, RG) prefix, and Gemma3-27B cut to one LSA layer
+# (the JAX package's param_count), beside the whole models'
+D_RGEMMA, D_RGEMMA_FULL = 1_705_062_400, 9_396_195_328
+D_GEMMA3, D_GEMMA3_FULL = 1_822_179_328, 27_008_335_616
+# the step at which the reduced models ban the attacker on the CPU
+# (train_byzantine --model gemma3-27b / recurrentgemma-9b --device cpu)
+LOCAL_BAN_STEP = 1
 # the Fig. 9 sweep's runs to tolerance at full width are plain torch, ~12
 # ms an iteration over the 5 GB stack: capped at the trusted-server
 # default instead of the reference's 3000
@@ -1135,7 +1159,7 @@ def run_path(label, argv, attack=None, expect=(), breakdown=False,
               flush=True)
     del tr
     torch.cuda.empty_cache()
-    return summary, counts
+    return dict(summary, peak_memory=peak), counts
 
 
 def run_engine_path(label, n, aggregator, attack, launches, groups=None):
@@ -1541,6 +1565,24 @@ QWEN3 = ["--model", "qwen3-1.7b", "--full", "--peers", "4", "--byzantine",
          str(CLIP_ITERS), "--seq", "128", "--batch", "4", "--steps", "6"]
 
 
+def fused_cold_bound(n, d, n_parts, it):
+    """#1's bound on an (n, d) stack in ``n_parts`` partitions, ``it``
+    iterations from a cold start: the stack, z and v each once and the
+    tables written, or 6 it + 6 float32 operations an element; and the
+    bytes its design moves (``it`` + 2 reads of the stack, 2 it + 1
+    passes over v and z)."""
+    from repro_torch.kernels.centered_clip import part_len
+
+    nd, pd = n * d, n_parts * part_len(d, n_parts)
+    tbl = 2 * n * n_parts * 4
+    nbytes, ops = (nd + 2 * pd) * 4 + tbl, nd * (6 * it + 6)
+    return {"bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / F32_FLOPS_PER_S else "operations"),
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  ops / F32_FLOPS_PER_S),
+            "moved_bytes": ((it + 2) * nd + (2 * it + 1) * pd) * 4 + tbl}
+
+
 def run_qwen3(label, stats):
     """(q) the dense-decoder family at full width: ``train_byzantine
     --model qwen3-1.7b --full`` (d = 1,720,574,976, bf16 storage, float32
@@ -1597,16 +1639,10 @@ def run_qwen3(label, stats):
     check(ok and rel <= RTOL, f"{label}: #1 at (4, d) disagrees with plain, "
           f"max abs err {err:.3e}, relative {rel:.3e}")
     del out
-    nd, pd, tbl = n * D_QWEN3, n_parts * part, 2 * n * n_parts * 4
-    nbytes, ops = (nd + 2 * pd) * 4 + tbl, nd * (6 * it + 6)
     st = stats.setdefault("butterfly_clip_fused@q3", {})
     st.update(max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
               plain_ms=time_ms(plain_all, reps=3),
-              bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                        >= ops / F32_FLOPS_PER_S else "operations"),
-              bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                 ops / F32_FLOPS_PER_S),
-              moved_bytes=((it + 2) * nd + (2 * it + 1) * pd) * 4 + tbl)
+              **fused_cold_bound(n, D_QWEN3, n_parts, it))
     print(f"{label}: butterfly_clip_fused n={n} d={D_QWEN3} P={n_parts} "
           f"{it} iterations tau=1 cold: {st['ms']:.3f} ms (plain "
           f"{st['plain_ms']:.3f} ms a partition at a time, bound "
@@ -1706,6 +1742,125 @@ def run_deepseek(label):
           f"{[round(float(a), 6) for a in aux[:4]]}; routed tokens dropped "
           f"at step 0 by capacity, per MoE layer: {drops}", flush=True)
     torch.cuda.empty_cache()
+    return counts
+
+
+def rglru_kept_bytes(arch, seq):
+    """Bytes one RG-LRU mixer of ``arch`` at its published widths keeps for
+    the backward after its forward (batch 1 at ``seq``), and its scan
+    alone (float32 (1, seq, width) inputs): allocated after the forward
+    less before it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models import rglru
+    from repro_torch.models.layers import cdtype
+
+    cfg = get_config(arch)
+    p = {k: t.requires_grad_(True) for k, t in
+         rglru.rglru_init(prng.key(0, device="cuda"), cfg).items()}
+    w = cfg.rglru_width or cfg.d_model
+    x = torch.randn((1, seq, cfg.d_model), device="cuda",
+                    dtype=cdtype(cfg), requires_grad=True)
+    log_a = -torch.rand((1, seq, w), device="cuda").requires_grad_(True)
+    b = torch.randn((1, seq, w), device="cuda", requires_grad=True)
+    kept = []
+    for fn in (lambda: rglru.rglru_apply(p, cfg, None, x),
+               lambda: rglru.linear_scan(log_a, b)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        kept.append(torch.cuda.memory_allocated() - before)
+        del out
+    del p, x, log_a, b
+    torch.cuda.empty_cache()
+    return kept
+
+
+def run_cut_model(label, arch, cut, d, d_full, seq, steps, card):
+    """One of (s), (t): ``arch`` at its published widths with its depth
+    cut to ``cut(cfg)`` (config fields), through ``train_byzantine``'s
+    settings (4 peers, sign flip on peer 3, 2 validators, 5 clip
+    iterations, batch 1 at ``seq``, ``steps`` steps) with the cut model
+    handed to
+    ``run_model``: #1 exactly once a step and no other kernel, the
+    attacker banned at ``LOCAL_BAN_STEP``, no honest peer accused or
+    banned, finite losses and norms, the final |g|, the step median, one
+    more step by part, the peak memory beside the card; then #1 at the
+    path's (4, d) stack, repeated bit for bit and timed. Returns the
+    launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.workload import model_setup
+
+    cfg = get_config(arch)
+    model = Model(dataclasses.replace(cfg, **cut(cfg)))
+    print(f"{label}: {cfg.name} at its published widths, depth cut from "
+          f"{cfg.n_layers} blocks to {model.cfg.n_layers} "
+          f"{[s.mixer for s in model.cfg.layers]}: the full depth's d = "
+          f"{d_full:,} would need a {4 * 4 * d_full / 1e9:.0f} GB float32 "
+          "stack for 4 peers", flush=True)
+    losses = []
+
+    def loss_fn(params, batch):
+        loss = model.loss_fn(params, batch)[0]
+        losses.append(loss.detach())
+        return loss
+
+    def setup():
+        _, params0, batch_fn, _ = model_setup(model, seq_len=seq,
+                                              batch_size=1, device="cuda")
+        return loss_fn, params0, batch_fn, model
+
+    argv = ["--model", arch, "--full", "--peers", "4", "--byzantine", "1",
+            "--attack", "sign_flip", "--validators", "2", "--clip-iters",
+            str(CLIP_ITERS), "--seq", str(seq), "--batch", "1", "--steps",
+            str(steps)]
+    summary, counts = run_path(label, argv, breakdown=True,
+                               launches={"butterfly_clip_fused": steps},
+                               d=d, setup=setup)
+    check(summary["ban_steps"] == {3: LOCAL_BAN_STEP},
+          f"{label}: ban steps {summary['ban_steps']}, expected peer 3 at "
+          f"step {LOCAL_BAN_STEP}")
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()),
+          f"{label}: non-finite loss {losses.tolist()}")
+    check(math.isfinite(summary["final_grad_norm"]),
+          f"{label}: final |g| {summary['final_grad_norm']}")
+    # #1 at this path's (4, d) stack as the path calls it (4 partitions,
+    # tau 1, a cold start), repeated bit for bit and timed; its plain
+    # version is held against it at (q)'s stack
+    from repro_torch.kernels import centered_clip as kc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    grads = stack(4, d, gen, "cuda")
+    z = torch.randn((4, kc.part_len(d, 4)), generator=gen, device="cuda")
+    z.div_(torch.linalg.vector_norm(z, dim=1, keepdim=True))
+
+    def kern():
+        return kc.butterfly_clip_fused(grads, 4, [1.0] * CLIP_ITERS, z)
+
+    out = tuple(t.cpu() for t in kern())
+    check(bitwise(out, tuple(t.cpu() for t in kern())),
+          f"{label}: #1 at (4, d) not bitwise repeatable")
+    del out
+    st = dict(ms=time_ms(kern, reps=3), **fused_cold_bound(4, d, 4,
+                                                           CLIP_ITERS))
+    del grads, z
+    torch.cuda.empty_cache()
+    print(f"{label}: butterfly_clip_fused n=4 d={d} P=4 {CLIP_ITERS} "
+          f"iterations tau=1 cold: {st['ms']:.3f} ms (bound "
+          f"{st['bound_ms']:.3f} ms by {st['bound_by']}; moves "
+          f"{st['moved_bytes']} bytes, "
+          f"{st['moved_bytes'] / st['ms'] / 1e9:.3f} TB/s)", flush=True)
+    print(f"{label}: d = {summary['d']:,}; peer 3 banned at step "
+          f"{summary['ban_steps'][3]}; losses over {len(losses)} gradients "
+          f"in [{float(losses.min()):.6f}, {float(losses.max()):.6f}]; final "
+          f"|g| {summary['final_grad_norm']!r}; peak memory "
+          f"{summary['peak_memory'] / 1e9:.2f} GB on {card}", flush=True)
     return counts
 
 
@@ -2073,6 +2228,20 @@ def main():
     # the MoE/MLA family at full width, depth cut, on the main path
     paths["deepseek"] = run_deepseek("phase 9 (r) deepseek-v2-lite-16b "
                                      "--full")
+    # the RG-LRU and local-attention families at published widths, depth
+    # cut, on the main path
+    paths["recurrentgemma"] = run_cut_model(
+        "phase 9 (s) recurrentgemma-9b --full", "recurrentgemma-9b",
+        lambda cfg: {"prefix": (), "n_repeats": 1}, D_RGEMMA,
+        D_RGEMMA_FULL, 4096, 6, card)
+    kept = rglru_kept_bytes("recurrentgemma-9b", 4096)
+    print(f"phase 9 (s): kept for the backward at seq 4096, width 4096: "
+          f"{kept[0] / 1e9:.3f} GB by one RG-LRU mixer, {kept[1] / 1e9:.3f} "
+          "GB by its scan alone", flush=True)
+    paths["gemma3"] = run_cut_model(
+        "phase 9 (t) gemma3-27b --full", "gemma3-27b",
+        lambda cfg: {"prefix": cfg.prefix[:1], "pattern": (),
+                     "n_repeats": 0}, D_GEMMA3, D_GEMMA3_FULL, 2048, 3, card)
     print("phase 10: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
@@ -2105,6 +2274,8 @@ def main():
         if name == "butterfly_clip_fused":
             row["launches_qwen3"] = paths["qwen3"][name]
             row["launches_deepseek"] = paths["deepseek"][name]
+            row["launches_recurrentgemma"] = paths["recurrentgemma"][name]
+            row["launches_gemma3"] = paths["gemma3"][name]
         if name in ("verify_tables", "adaptive_clip_step"):
             # the crash drill's legs: A uninterrupted, B halted, C resumed
             row["launches_drill"] = {

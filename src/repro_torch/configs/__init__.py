@@ -2,9 +2,10 @@
 
 Ported so far: ALBERT-large (the shared dense stack), the dense
 decoders Qwen3-1.7B, ChatGLM3-6B and Qwen1.5-110B (RoPE, QKV bias,
-QK-norm, unshared layers) and the MoE decoders DeepSeek-V2-Lite-16B (MLA,
-shared experts) and DBRX-132B; the other families of the JAX package's
-zoo wait for ROADMAP item 13.
+QK-norm, unshared layers), the MoE decoders DeepSeek-V2-Lite-16B (MLA,
+shared experts) and DBRX-132B, Gemma3-27B (local and global attention)
+and RecurrentGemma-9B (RG-LRU and local attention); the other families of
+the JAX package's zoo wait for ROADMAP item 13.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ _ARCH_MODULES = {
     "albert-large": "albert_large",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "dbrx-132b": "dbrx_132b",
+    "gemma3-27b": "gemma3_27b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

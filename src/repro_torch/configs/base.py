@@ -31,9 +31,11 @@ class LayerSpec:
 
 
 SA = LayerSpec("attn_full", "dense")
+LSA = LayerSpec("attn_local", "dense")
 SA_MOE = LayerSpec("attn_full", "moe")
 MLA_D = LayerSpec("mla", "dense")
 MLA_MOE = LayerSpec("mla", "moe")
+RG = LayerSpec("rglru", "dense")
 
 
 @dataclass(frozen=True)
@@ -86,7 +88,7 @@ class ModelConfig:
     ssm_conv: int = 4
 
     # --- RG-LRU ------------------------------------------------------------
-    rglru_width: int = 0
+    rglru_width: int = 0  # d_model when 0
     rglru_conv: int = 4
 
     # --- encoder / modality stub ---------------------------------------------

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.centered_clip import centered_clip_to_tol
+from repro_torch.core.norms import vector_norm
 
 _BIG = 1e30  # "infinite" pairwise distance for masked rows
 
@@ -106,11 +107,11 @@ def geometric_median(xs, eps=1e-6, max_iters=200, weights=None,
     eps32 = float(np.float32(eps))  # the reference compares in float32
     delta, iters = math.inf, 0
     while delta > eps32 and iters < max_iters:
-        dist = torch.linalg.vector_norm(xs - v[None], dim=1)
+        dist = vector_norm(xs - v[None], dim=1)
         inv = w0 / torch.clamp(dist, min=1e-12)
         v_new = (inv[:, None] * xs).sum(0) / torch.clamp(inv.sum(),
                                                          min=1e-30)
-        delta = float(torch.linalg.vector_norm(v_new - v))
+        delta = float(vector_norm(v_new - v))
         v, iters = v_new, iters + 1
     if return_iters:
         return v, iters

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.norms import vector_norm
 
 
 def _hon(byz_mask, hon_mask):
@@ -36,8 +37,8 @@ def sign_flip(grads, byz_mask, *, lam=1000.0, **_):
 def random_direction(grads, byz_mask, *, key, lam=1000.0, **_):
     """All attackers send a large common random vector."""
     v = prng.normal(key, (grads.shape[1],)).to(grads.dtype)
-    v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
-    scale = _lam(lam, grads) * torch.linalg.vector_norm(grads, dim=1).mean()
+    v = v / torch.clamp(vector_norm(v), min=1e-30)
+    scale = _lam(lam, grads) * vector_norm(grads, dim=1).mean()
     return torch.where(byz_mask[:, None], (scale * v)[None, :], grads)
 
 
@@ -137,5 +138,5 @@ def aggregator_shift_all(agg, corrupt_mask, key, scale):
     a unit random shift (one direction per partition) times ``scale``."""
     noise = prng.normal(key, tuple(agg.shape))
     noise = noise / torch.clamp(
-        torch.linalg.vector_norm(noise, dim=1, keepdim=True), min=1e-30)
+        vector_norm(noise, dim=1, keepdim=True), min=1e-30)
     return torch.where(corrupt_mask[:, None], agg + scale * noise, agg)

@@ -32,6 +32,7 @@ from repro_torch.core import prng
 from repro_torch.core.aggregators import (AGGREGATORS, resolve_spec,
                                           with_byzantine_default)
 from repro_torch.core.flatten import FlatBoundary, tree_unflatten
+from repro_torch.core.norms import vector_norm
 from repro_torch.core.protocol import AttackConfig
 from repro_torch.optim import apply_updates, sgd
 
@@ -205,7 +206,7 @@ class BTARDTrainer:
             g, banned_now = self.train_step()
             rec = {
                 "step": self._step - 1,
-                "grad_norm": float(torch.linalg.vector_norm(g)),
+                "grad_norm": float(vector_norm(g)),
                 "n_banned": len(self.banned),
             }
             if banned_now is not None:
@@ -244,7 +245,7 @@ class BTARDTrainer:
         self.banned.update(p for p, _ in new)
         rec = {
             "step": self._step,
-            "grad_norm": float(torch.linalg.vector_norm(out.g_hat)),
+            "grad_norm": float(vector_norm(out.g_hat)),
             "n_banned": len(self.banned),
             "banned_now": new,
             "accused_peers": _accused(out),

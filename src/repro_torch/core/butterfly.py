@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.norms import vector_norm
 from repro_torch.kernels import centered_clip as kc
 from repro_torch.kernels import ops
 
@@ -98,7 +99,7 @@ def get_random_directions(seed, n_parts: int, part: int):
     key = seed if (isinstance(seed, torch.Tensor) and seed.shape == (2,)) \
         else prng.key(seed)
     z = prng.normal(key, (n_parts, part))  # in blocks: prng.NORMAL_BLOCK
-    return z.div_(torch.clamp(torch.linalg.vector_norm(z, dim=1, keepdim=True),
+    return z.div_(torch.clamp(vector_norm(z, dim=1, keepdim=True),
                               min=1e-30))
 
 
@@ -152,8 +153,8 @@ def checksum_tolerance(agg, grads, rel=1e-3):
     norms = torch.zeros((n, P), dtype=torch.float32, device=grads.device)
     if full:
         body = grads[:, :full * part].reshape(n, full, part)
-        norms[:, :full] = torch.linalg.vector_norm(body, dim=-1)
+        norms[:, :full] = vector_norm(body, dim=-1)
     if full < P:
-        norms[:, full] = torch.linalg.vector_norm(grads[:, full * part:],
+        norms[:, full] = vector_norm(grads[:, full * part:],
                                                   dim=-1)
     return rel * torch.clamp(norms.mean(), min=1e-6)

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core.norms import vector_norm
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import freeze_by_select
 
@@ -58,7 +59,7 @@ def _stacked_update(xs, v, tau, weights, wsum):
     xs: (P, n, part) f32; v: (P, part) f32 -> the update (P, part) f32.
     The single update rule of the fixed and adaptive loops."""
     diff = xs - v[:, None, :]
-    norms = torch.linalg.vector_norm(diff, dim=2)  # (P, n)
+    norms = vector_norm(diff, dim=2)  # (P, n)
     cw = _clip_weights(norms, tau) * weights[None, :]
     return (cw[..., None] * diff).sum(1) / wsum
 
@@ -143,11 +144,11 @@ def centered_clip_to_tol(xs, tau, eps: float = 1e-6, max_iters: int = 200,
     delta, iters = float("inf"), 0
     while delta > eps32 and iters < max_iters:
         diff = xs - v[None, :]
-        norms = torch.linalg.vector_norm(diff.to(torch.float32), dim=1)
+        norms = vector_norm(diff.to(torch.float32), dim=1)
         cw = _clip_weights(norms, tau32) * weights
         step = (cw[:, None] * diff).sum(0) / wsum
         v = (v + step).to(xs.dtype)
-        delta = float(torch.linalg.vector_norm(step.to(torch.float32)))
+        delta = float(vector_norm(step.to(torch.float32)))
         iters += 1
     return v, iters
 
@@ -158,5 +159,5 @@ def clip_residuals(xs, v, tau):
     At the exact fixed point sum_i Delta_i = 0 — the basis of Verification 2.
     """
     diff = xs - v[None, :]
-    norms = torch.linalg.vector_norm(diff.to(torch.float32), dim=1)
+    norms = vector_norm(diff.to(torch.float32), dim=1)
     return diff * _clip_weights(norms, tau)[:, None]

@@ -53,6 +53,7 @@ from repro_torch.core import hierarchy as hier_mod
 from repro_torch.core import prng
 from repro_torch.core import sybil as sybil_mod
 from repro_torch.core import verification as verif_mod
+from repro_torch.core.norms import vector_norm
 from repro_torch.core.sybil import (  # noqa: F401 (the lifecycle codes)
     SLOT_ACTIVE,
     SLOT_BANNED,
@@ -459,7 +460,7 @@ def phase_attack(cfg, state, G, honest_G, byz, engage_b=None):
         delay_buf[t % cfg.delay_depth] = torch.where(
             (byz & active_b)[:, None], honest_G, 0.0).to(delay_buf.dtype)
     if cfg.clip_lambda is not None:
-        nrm = torch.linalg.vector_norm(G, dim=1)
+        nrm = vector_norm(G, dim=1)
         scale = torch.clamp(cfg.clip_lambda / torch.clamp(nrm, min=1e-30),
                             max=1.0)
         clip_rows = (~byz)[:, None]

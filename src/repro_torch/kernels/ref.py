@@ -32,6 +32,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core.norms import vector_norm
+
 
 def _peer_weights(weights, xs):
     n = xs.shape[-2]
@@ -59,7 +61,7 @@ def centered_clip_ref(xs, taus, weights=None, v0=None):
          if v0 is None else v0.to(torch.float32))
     for tau in taus:
         diff = xs - v.unsqueeze(-2)
-        norms = torch.linalg.vector_norm(diff, dim=-1)
+        norms = vector_norm(diff, dim=-1)
         cw = _clip(norms, tau) * w
         v = v + (cw.unsqueeze(-1) * diff).sum(-2) / wsum
     return v
@@ -130,7 +132,7 @@ def verify_tables_ref(xs, v, z, tau):
     """s_i = min(1, tau/||x_i - v||) <z, x_i - v>, norm_i = ||x_i - v||.
     xs (..., n, d); v, z (..., d). Returns (s, norms), both (..., n)."""
     diff = xs.to(torch.float32) - v.to(torch.float32).unsqueeze(-2)
-    norms = torch.linalg.vector_norm(diff, dim=-1)
+    norms = vector_norm(diff, dim=-1)
     dots = (diff * z.to(torch.float32).unsqueeze(-2)).sum(-1)
     return _clip(norms, tau) * dots, norms
 
@@ -141,7 +143,7 @@ def digest_tables_ref(xs, v, z):
     both (..., n)."""
     diff = xs.to(torch.float32) - v.to(torch.float32).unsqueeze(-2)
     dots = (diff * z.to(torch.float32).unsqueeze(-2)).sum(-1)
-    return dots, torch.linalg.vector_norm(diff, dim=-1)
+    return dots, vector_norm(diff, dim=-1)
 
 
 def digest_tables_rows_ref(xs, v, z, rows, tau=0.0):

@@ -39,6 +39,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core.centered_clip import centered_clip, centered_clip_to_tol
+from repro_torch.core.norms import vector_norm
 from repro_torch.kernels import centered_clip as kc
 from repro_torch.kernels import ops
 
@@ -66,7 +67,7 @@ def _normal_rows(key, rows, d, device):
 def problem(d=1024, n=16, b=3, device="cpu"):
     """The reference's ``_problem``: (xs (n, d), honest mean (d,))."""
     mu = prng.normal(prng.key(1, device=device), (d,))
-    mu = mu / torch.linalg.vector_norm(mu) * 50.0
+    mu = mu / vector_norm(mu) * 50.0
     honest = mu + _normal_rows(prng.key(2, device=device), n - b, d, device)
     attack = (-10.0 * mu).expand(b, d)
     return torch.cat([honest, attack]), honest.mean(0)
@@ -78,7 +79,7 @@ def drift(shape, device="cpu"):
 
 
 def _err(v, hm):
-    return float(torch.linalg.vector_norm(v - hm))
+    return float(vector_norm(v - hm))
 
 
 def sweep(xs, hm, xs_drift, max_iters=3000, emit=None):

@@ -36,6 +36,7 @@ from repro_torch.core import prng
 from repro_torch.core import verification as verif_mod
 from repro_torch.core.flatten import FlatBoundary, tree_leaves, tree_unflatten
 from repro_torch.core.hierarchy import group_shape
+from repro_torch.core.norms import vector_norm
 from repro_torch.kernels import ops
 
 # the per-peer entries of a step's verification dict, in packing order;
@@ -183,7 +184,7 @@ def aggregation_stage(g_vec, group, n_peers, spec, weights, seed,
     # shared across groups)
     z = prng.normal(prng.fold_in(prng.key(seed, device=dev), fold_idx),
                     (part,))
-    z = z / torch.clamp(torch.linalg.vector_norm(z), min=1e-30)
+    z = z / torch.clamp(vector_norm(z), min=1e-30)
     _mark(clock, group, "z_draw")
 
     if verif_mod.is_wrapped(spec):
@@ -243,11 +244,11 @@ def _verify_audit_tail(group, g_vec, d, pad, recv, agg, s_local, norms_local,
         # the lying owner corrupts its aggregate AFTER aggregating and
         # recomputes its digests against the corrupted value
         is_byz = byz_mask[my_idx] > 0
-        rms = (torch.linalg.vector_norm(agg)
+        rms = (vector_norm(agg)
                / math.sqrt(float(agg.shape[0])))
         agg = torch.where(is_byz, agg + agg_attack_scale * (rms + 1e-8), agg)
         diff = recv.float() - agg[None]
-        n_att = torch.linalg.vector_norm(diff, dim=1)
+        n_att = vector_norm(diff, dim=1)
         dots = diff @ z.float()
         if tau_v > 0:
             s_att = torch.clamp(tau_v / torch.clamp(n_att, min=1e-30),
@@ -369,8 +370,8 @@ def device_attack(grads_vec, byz_mask, group, kind, key, lam=100.0):
         return torch.where(is_byz, -lam * grads_vec, grads_vec)
     if kind == "random_direction":
         v = prng.normal(key, tuple(grads_vec.shape))
-        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
-        scale = lam * torch.linalg.vector_norm(grads_vec)
+        v = v / torch.clamp(vector_norm(v), min=1e-30)
+        scale = lam * vector_norm(grads_vec)
         return torch.where(is_byz, scale * v, grads_vec)
     if kind == "ipm":
         n_honest = torch.clamp((1.0 - byz_mask).sum(), min=1.0)

@@ -1,12 +1,14 @@
-"""Causal multi-head self-attention for the ported models: GQA and
-DeepSeek's multi-head latent attention (MLA).
+"""Causal multi-head self-attention for the ported models: GQA, global or
+local (sliding-window), and DeepSeek's multi-head latent attention (MLA).
 
 Counterpart of ``repro.models.attention``'s ``gqa_init``/``gqa_apply`` and
 ``mla_init``/``mla_apply`` in training mode: the optional QKV bias, the
 QK-norm over the head dim and RoPE (``standard``, GLM's ``half``, or
-``none`` for ALBERT's learned positions) in the JAX package's order; MLA's
-compressed KV (a low-rank latent, RMS-normed, expanded per head) with a
-shared roped key. Prefill, decode and the KV caches (MLA's absorbed
+``none`` for ALBERT's learned positions) in the JAX package's order; the
+``attn_local`` mixer's window (a query sees itself and the window - 1 keys
+before it), in query blocks once the sequence is longer than the window;
+MLA's compressed KV (a low-rank latent, RMS-normed, expanded per head)
+with a shared roped key. Prefill, decode and the KV caches (MLA's absorbed
 decode among them) are ROADMAP item 15's. Written with
 matmul and softmax rather than a fused attention call, so that its
 backward is deterministic; scores and softmax run in float32, as the JAX
@@ -22,6 +24,7 @@ from repro_torch.models.layers import (apply_rope, cdtype, dense_init,
                                       rms_head_norm)
 
 NEG_INF = -2.0e38
+WINDOW_BLOCK = 1024  # query rows a block of the windowed form
 
 
 def gqa_init(key, cfg, spec):
@@ -45,26 +48,48 @@ def gqa_init(key, cfg, spec):
     return p
 
 
-def causal_attention(q, k, v):
+def causal_attention(q, k, v, window=0):
     """q, k: (B, S, H, D); v: (B, S, H, Dv) -> (B, S, H, Dv); softmax in
-    float32, scaled by 1/sqrt(D), q's head dim (MLA: D = 192, Dv = 128)."""
-    D = q.shape[-1]
+    float32, scaled by 1/sqrt(D), q's head dim (MLA: D = 192, Dv = 128).
+    ``window`` > 0: query i sees keys i - window + 1 .. i; past S = window
+    the queries go in blocks of min(S, ``WINDOW_BLOCK``), each against its
+    span of window + block keys, so the scores take S * (window + block)
+    and not S * S (the JAX package's ``_windowed_attention``)."""
     S = q.shape[1]
+    if window and S > window:
+        bq = min(S, WINDOW_BLOCK)
+        outs = []
+        for qs in range(0, S, bq):
+            qe, lo = min(S, qs + bq), max(0, qs - window)
+            outs.append(_attend(q[:, qs:qe], k[:, lo:qe], v[:, lo:qe],
+                                qs, lo, window))
+        return torch.cat(outs, 1)
+    return _attend(q, k, v, 0, 0, window)
+
+
+def _attend(q, k, v, q0, k0, window):
+    """Softmax attention of queries at positions q0.. over keys at k0..,
+    causal, and within ``window`` where it is > 0."""
+    D = q.shape[-1]
     scores = torch.einsum("bshd,bthd->bhst", q.to(torch.float32),
                           k.to(torch.float32))
     scores = scores * float(np.float32(1.0 / np.sqrt(D)))
-    pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] <= pos[:, None]
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
+    qpos = torch.arange(q0, q0 + q.shape[1], device=q.device)[:, None]
+    kpos = torch.arange(k0, k0 + k.shape[1], device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    probs = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
     return torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
 
 
 def gqa_apply(p, cfg, spec, x, pos):
-    """Causal self-attention of a block. x: (B, S, d) -> (B, S, d); pos:
-    (S,) positions. q and k: projection, bias, heads, head norm, rope."""
+    """Causal self-attention of a block, global (``attn_full``) or within
+    ``cfg.window`` (``attn_local``). x: (B, S, d) -> (B, S, d); pos: (S,)
+    positions. q and k: projection, bias, heads, head norm, rope."""
     B, S, _ = x.shape
     H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.window if spec.mixer == "attn_local" else 0
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -83,7 +108,7 @@ def gqa_apply(p, cfg, spec, x, pos):
     if Kv < H:
         k = k.repeat_interleave(H // Kv, dim=2)
         v = v.repeat_interleave(H // Kv, dim=2)
-    y = causal_attention(q, k, v).reshape(B, S, H * D)
+    y = causal_attention(q, k, v, window).reshape(B, S, H * D)
     return y @ p["wo"]
 
 

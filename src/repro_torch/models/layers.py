@@ -1,13 +1,13 @@
 """Shared building blocks of the ported models: LayerNorm/RMSNorm, the
-QK-norm, the dense MLP, RoPE, embeddings with learned positions, and the
-output projection.
+QK-norm, the dense MLP, RoPE, embeddings with learned positions and the
+gemma scale, the output projection, and the depthwise causal conv.
 
-Counterpart of ``repro.models.layers``, restricted to what ALBERT-large,
-the dense decoders and the MoE/MLA decoders run. Parameters are nested
-dicts of tensors with the JAX package's names, shapes and dtypes
-(``models.convert`` maps one onto the other). Weights are drawn with the
-port's threefry generator (``core.prng``), so a seed gives the JAX
-package's weights up to the last bit of ``normal``.
+Counterpart of ``repro.models.layers`` in training mode (the conv's
+decode step, ``causal_conv1d_step``, is ROADMAP item 13's step 5).
+Parameters are nested dicts of tensors with the JAX package's names,
+shapes and dtypes (``models.convert`` maps one onto the other). Weights
+are drawn with the port's threefry generator (``core.prng``), so a seed
+gives the JAX package's weights up to the last bit of ``normal``.
 """
 from __future__ import annotations
 
@@ -150,10 +150,22 @@ def embed_init(key, cfg):
 
 
 def embed_tokens(p, cfg, tokens, pos=None):
+    """The tokens' rows of the embedding; the gemma names scale them by
+    sqrt(d_model) rounded to the embedding's dtype first, as the JAX
+    package's ``jnp.asarray(np.sqrt(d), x.dtype)`` does (in bf16,
+    sqrt(5376) = 73.32 becomes 73.5)."""
     x = p["embed"][tokens.long()]
+    if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
+        x = x * embed_scale(cfg, x.dtype, x.device)
     if cfg.learned_pos and pos is not None:
         x = x + p["pos_embed"][pos]
     return x
+
+
+def embed_scale(cfg, dtype, device=None):
+    """sqrt(d_model) as a 0-d tensor of ``dtype``, rounded from float32."""
+    return torch.tensor(np.float32(np.sqrt(cfg.d_model)),
+                        device=device).to(dtype)
 
 
 def logits_out(p, cfg, x):
@@ -165,3 +177,26 @@ def logits_out(p, cfg, x):
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (the RG-LRU's front conv)
+# ---------------------------------------------------------------------------
+def conv1d_init(key, channels, width, dtype):
+    return {
+        "conv_w": _init(key, (width, channels), 1.0, dtype),
+        "conv_b": torch.zeros((channels,), dtype=dtype, device=key.device),
+    }
+
+
+def causal_conv1d(p, x):
+    """x: (B, S, C) -> (B, S, C): depthwise causal conv of width K. The K
+    shifted products are added one at a time to zeros in x's dtype, then
+    the bias, the JAX package's order (so bf16 rounds the same)."""
+    w = p["conv_w"]  # (K, C)
+    k, S = w.shape[0], x.shape[1]
+    xp = torch.cat([x.new_zeros((x.shape[0], k - 1) + x.shape[2:]), x], 1)
+    out = torch.zeros_like(x)
+    for i in range(k):  # K is 4
+        out = out + xp[:, i:i + S, :] * w[i]
+    return out + p["conv_b"]

@@ -3,8 +3,9 @@ pattern, then suffix blocks. The pattern's parameters are either one set
 applied ``n_repeats`` times (ALBERT's cross-layer sharing) or stacked
 along a leading ``n_repeats`` axis, one slice per repeat (the decoders).
 
-Counterpart of ``repro.models.transformer`` for self-attention blocks
-(GQA or MLA) with a dense or MoE MLP. The JAX package scans the pattern;
+Counterpart of ``repro.models.transformer`` for self-mixing blocks (GQA,
+global or local, MLA, or the RG-LRU) with a dense or MoE MLP. The JAX
+package scans the pattern;
 here it is a Python loop. Every apply returns the summed MoE load-balance
 loss beside the activations.
 """
@@ -16,20 +17,23 @@ from repro_torch.core import prng
 from repro_torch.core.flatten import tree_leaves, tree_unflatten
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_init, norm_init
 
 _MIXERS = {
     "attn_full": (attn.gqa_init, attn.gqa_apply),
+    "attn_local": (attn.gqa_init, attn.gqa_apply),
     "mla": (attn.mla_init, attn.mla_apply),
+    "rglru": (rglru_mod.rglru_init, rglru_mod.rglru_apply),
 }
 
 
 def _check_spec(spec):
     if spec.mixer not in _MIXERS or spec.cross:
         raise NotImplementedError(
-            f"block {spec} is not ported: only self-attention blocks (GQA "
-            "or MLA, with a dense or MoE MLP) exist so far; local and "
-            "cross attention, SSM and RG-LRU are ROADMAP item 13's")
+            f"block {spec} is not ported: cross attention (Whisper, "
+            "Llama-3.2-Vision) and the SSM (Mamba2) are ROADMAP item 13's "
+            "steps 2 and 4")
 
 
 def block_init(key, cfg, spec):

@@ -19,6 +19,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.norms import vector_norm
+
 
 @dataclass(frozen=True)
 class Optimizer:
@@ -196,8 +198,8 @@ def lamb(lr, b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01):
             pf = p.to(torch.float32)
             m_new, v_new, mhat, vhat = _moments(g, m, v, b1, b2, t)
             u = mhat / (torch.sqrt(vhat) + eps) + weight_decay * pf
-            w_norm = torch.linalg.vector_norm(pf.reshape(-1))
-            u_norm = torch.linalg.vector_norm(u.reshape(-1))
+            w_norm = vector_norm(pf.reshape(-1))
+            u_norm = vector_norm(u.reshape(-1))
             trust = torch.where((w_norm > 0) & (u_norm > 0),
                                 w_norm / torch.clamp(u_norm, min=1e-30),
                                 torch.ones_like(w_norm))

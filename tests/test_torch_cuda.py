@@ -23,7 +23,11 @@ backward on the card within 1e-5 of the same code on the CPU (each
 gradient within 1e-5 of its largest value), with its
 routing equal and its gradients equal bit for bit over two runs; the
 reduced DeepSeek-V2-Lite trains through ``run_scan`` on the card with #1
-once a step and the CPU run's bans. Marked
+once a step and the CPU run's bans. One block of Gemma3-27B (local
+attention) and of RecurrentGemma-9B (local attention, RG-LRU) at the
+published widths runs forward and backward on the card bit for bit
+twice and within 1e-5 of the CPU's; the reduced Gemma3-27B and
+RecurrentGemma-9B ban on the card as on the CPU. Marked
 ``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
@@ -937,6 +941,91 @@ def test_reduced_deepseek_run_scan_on_card_bans_as_on_cpu(cuda, monkeypatch):
     def run(device):
         loss_fn, params0, batch_fn, _ = lm_setup(
             "deepseek-v2-lite-16b", seq_len=16, batch_size=2, device=device)
+        tr = BTARDTrainer(loss_fn, params0, batch_fn, TrainerConfig(
+            n_peers=4, byzantine=(3,),
+            attack=AttackConfig(kind="sign_flip", start_step=0, delay=5),
+            tau=1.0, clip_iters=5, m_validators=2, device=device),
+            optimizer=sgd(0.05))
+        tr.run_scan(4)
+        return tr
+
+    before = kc.LAUNCHES["butterfly_clip_fused"]
+    card = run(cuda)
+    assert kc.LAUNCHES["butterfly_clip_fused"] - before == 4
+    cpu = run("cpu")
+    assert [r["banned_now"] for r in card.history] == \
+        [r["banned_now"] for r in cpu.history]
+    assert card.banned == cpu.banned == {3}
+    for a, b in zip(card.history, cpu.history):
+        assert a["accused_peers"] == b["accused_peers"]
+        assert math.isfinite(a["grad_norm"])
+
+
+# (arch, block, sequence): the local-attention blocks one query block past
+# their windows (1024, 2048), the RG-LRU block at an odd length
+PUBLISHED_BLOCKS = [("gemma3-27b", "attn_local", 1100),
+                    ("recurrentgemma-9b", "attn_local", 2100),
+                    ("recurrentgemma-9b", "rglru", 301)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, mixer, S", PUBLISHED_BLOCKS)
+def test_published_width_block_on_card_matches_cpu_and_repeats_bitwise(
+        cuda, monkeypatch, arch, mixer, S):
+    """One block of Gemma3-27B or RecurrentGemma-9B at its published
+    widths, float32 (TF32 off), batch 1: forward and backward on the card
+    equal bit for bit over two runs, and y and every gradient within 1e-5
+    of the CPU's, relative to its largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerSpec
+    from repro_torch.core import prng
+    from repro_torch.core.flatten import tree_leaves, tree_unflatten
+    from repro_torch.models import transformer as tfm
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    spec = LayerSpec(mixer, "dense")
+    params = tfm.block_init(prng.key(0, device=cuda), cfg, spec)
+    gen = torch.Generator().manual_seed(26)
+    x = torch.randn((1, S, cfg.d_model), generator=gen)
+    dy = torch.randn(x.shape, generator=gen)
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_(True)
+                  for t in tree_leaves(params)]
+        xx = x.to(device).requires_grad_(True)
+        y, _ = tfm.block_apply(tree_unflatten(params, leaves), cfg, spec, xx,
+                               torch.arange(S, device=device))
+        grads = torch.autograd.grad((y * dy.to(device)).sum(), leaves + [xx])
+        return [y.detach()] + list(grads)
+
+    one, two = run(cuda), run(cuda)
+    for a, b in zip(one, two):
+        assert a.is_cuda and torch.equal(a, b)
+    for a, c in zip(one, run("cpu")):
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-5,
+                                   atol=1e-5 * float(c.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-27b", "recurrentgemma-9b"])
+def test_reduced_local_and_rglru_run_scan_on_card_bans_as_on_cpu(
+        cuda, monkeypatch, arch):
+    """The reduced Gemma3-27B (local + global attention) and
+    RecurrentGemma-9B (RG-LRU + local attention) at seq 48, past their
+    window of 32, through ``run_scan`` for 4 steps, 4 peers, a sign flip on
+    peer 3: on the card #1 launches once a step, and the bans, ban steps
+    and accusations are the CPU run's."""
+    from repro_torch.core.btard_sgd import BTARDTrainer, TrainerConfig
+    from repro_torch.core.protocol import AttackConfig
+    from repro_torch.models.workload import lm_setup
+    from repro_torch.optim import sgd
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    def run(device):
+        loss_fn, params0, batch_fn, _ = lm_setup(
+            arch, seq_len=48, batch_size=2, device=device)
         tr = BTARDTrainer(loss_fn, params0, batch_fn, TrainerConfig(
             n_peers=4, byzantine=(3,),
             attack=AttackConfig(kind="sign_flip", start_step=0, delay=5),
