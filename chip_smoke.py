@@ -129,10 +129,31 @@ Phases, each printing its own line:
      finite losses and norms, the final |g|, the step median, the step's
      parts (the z draw, the gradients), the peak memory beside the card's
      name and power limit; (s) also the memory one RG-LRU mixer's forward
-     keeps for its backward at seq 4096;
-  10. the launches of every kernel per path (#1's on (q), (r), (s) and
-     (t) beside its row: ``launches_qwen3``, ``launches_deepseek``,
-     ``launches_recurrentgemma``, ``launches_gemma3``).
+     keeps for its backward at seq 4096; (u) the encoder-decoder family
+     whole: Whisper-small (12 encoder and 12 decoder layers, d =
+     264,426,240) through ``repro_torch.launch.train``'s normal entry
+     point, 4 peer ranks as threads, sign flip on rank 3, tau 1, 4 steps
+     at seq 448 (its decoder context), global batch 8, each row's memory
+     1500 frames x 768 from the pipeline's extras: #10 exactly once per
+     rank and step (16) and no other kernel, a finite loss at every step,
+     peer 3 banned, no honest ban, one more step by part, the peak memory;
+     then #10 at its owner stack (4, 66,106,560) held against its plain
+     version and timed (``at_whisper`` in #10's row);
+     (v) gated cross attention at its published widths: Llama-3.2-Vision
+     (d_model 4096, 32 heads with kv 8, vocab 128,256, a 7680 -> 4096
+     projector, 1600 patches) cut to one (SA, XA) pair (d =
+     1,518,358,529), as (s) through ``run_model``, seq 128, batch 4, 6
+     steps, ``memory_raw`` from the pipeline's extras: #1 exactly 6 and no
+     other kernel, the attacker banned at the step the reduced model bans
+     at on the CPU, no honest accusation, finite; then #1 at that (4, d)
+     stack (odd: no peer row after the first starts on 16 bytes, so the
+     passes take the global body, which it prints) held against its plain
+     version one partition at a time and timed (``at_llama_vision`` in
+     #1's row);
+  10. the launches of every kernel per path (#1's on (q), (r), (s), (t)
+     and (v) beside its row: ``launches_qwen3``, ``launches_deepseek``,
+     ``launches_recurrentgemma``, ``launches_gemma3``,
+     ``launches_llama_vision``; #10's on (u): ``launches_whisper``).
 
 Before the last line it prints the script's wall time, the card's name
 and power limit and a JSON object with each kernel's numbers; the last
@@ -195,6 +216,18 @@ D_GEMMA3, D_GEMMA3_FULL = 1_822_179_328, 27_008_335_616
 # the step at which the reduced models ban the attacker on the CPU
 # (train_byzantine --model gemma3-27b / recurrentgemma-9b --device cpu)
 LOCAL_BAN_STEP = 1
+# Whisper-small whole (the JAX package's param_count), and Llama-3.2-Vision
+# at its published widths cut to one (SA, XA) pair, beside the whole model
+D_WHISPER = 264_426_240
+D_VISION, D_VISION_FULL = 1_518_358_529, 9_806_614_536
+# the step at which the reduced Llama-3.2-Vision bans the attacker on the
+# CPU (the engine, 4 peers, seq 128, batch 4, memory_raw from the extras)
+VISION_BAN_STEP = 1
+# (u): the distributed launcher on Whisper-small uncut, 4 peer ranks, 4
+# steps at its decoder context, 2 rows of (448 tokens, 1500 frames) a rank
+WHISPER = ["--arch", "whisper-small", "--mesh", "4x1", "--steps", "4",
+           "--attack", "sign_flip", "--byzantine", "3", "--tau", "1",
+           "--clip-iters", str(CLIP_ITERS), "--seq", "448", "--batch", "8"]
 # the Fig. 9 sweep's runs to tolerance at full width are plain torch, ~12
 # ms an iteration over the 5 GB stack: capped at the trusted-server
 # default instead of the reference's 3000
@@ -570,7 +603,8 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
 
 # the side cases a kernel's row carries: stats key suffix -> row key
 SIDE_ROWS = {"@16": "at_16_peers", "@owner": "at_owner_stack",
-             "@s42": "at_section_4_2", "@q3": "at_qwen3"}
+             "@s42": "at_section_4_2", "@q3": "at_qwen3",
+             "@lv": "at_llama_vision", "@wh": "at_whisper"}
 
 
 def fold_side(stats, name, suffix):
@@ -581,7 +615,7 @@ def fold_side(stats, name, suffix):
     for k in ("max_abs_err", "max_rel_err"):
         main[k] = max(main[k], side[k])
     main[SIDE_ROWS[suffix]] = {k: side[k] for k in (
-        "ms", "plain_ms", "bound_ms", "moved_bytes")}
+        "ms", "plain_ms", "bound_ms", "moved_bytes", "body") if k in side}
 
 
 def owner_cases(stats, gen, dev):
@@ -1274,7 +1308,7 @@ def engine_breakdown(cfg, state, byz_mask, params, grads_fn):
             "z_draws_in_protocol": z_s}
 
 
-def run_launch_path(label, argv, launches):
+def run_launch_path(label, argv, launches, d=None):
     """Drive ``repro_torch.launch.train`` through its normal entry point
     (``build_parser`` + ``run``): 4 peer ranks as threads on the card. The
     launch counts are set to 0 just before and read when every rank has
@@ -1283,15 +1317,23 @@ def run_launch_path(label, argv, launches):
     (all others 0), but for #3, whose launches are held against the
     iterations each owner's call stepped (``hold_adaptive``). Checks: a
     finite loss at every step, the attacker banned within the steps, no
-    honest peer banned. Returns the counts."""
+    honest peer banned, and the model's parameter count ``d`` where
+    given. Prints the card's peak memory over the run. Returns the
+    counts."""
+    from repro_torch.core.flatten import tree_leaves
     from repro_torch.kernels import centered_clip as kc
     from repro_torch.launch import train as lt
 
     args = lt.build_parser().parse_args(argv)
     counts = {}
+    torch.cuda.reset_peak_memory_stats()
     kc.reset_launch_counts()
     rec = lt.run(args, breakdown=True,
                  on_steps_done=lambda: counts.update(kc.LAUNCHES))
+    peak = torch.cuda.max_memory_allocated()
+    if d is not None:
+        got = sum(t.numel() for t in tree_leaves(rec["state"]["params"]))
+        check(got == d, f"{label}: d = {got}, expected {d}")
     byz = {int(b) for b in args.byzantine.split(",")}
     losses, bans = rec["losses"], rec["ban_steps"]
     check(len(losses) == args.steps and all(map(math.isfinite, losses)),
@@ -1310,7 +1352,8 @@ def run_launch_path(label, argv, launches):
           f"over {len(rec['seconds'])} steps "
           f"{[round(x, 4) for x in rec['seconds']]}; losses "
           f"{[round(x, 4) for x in losses]}; bans {bans}; clip iters "
-          f"{rec['clip_iters']}; launches {counts}", flush=True)
+          f"{rec['clip_iters']}; launches {counts}; peak memory "
+          f"{peak / 1e9:.2f} GB", flush=True)
     parts = dict(rec["parts"], whole_step=sum(rec["parts"].values()))
     print(f"{label}: one more step, seconds by part "
           + json.dumps({k: round(v, 4) for k, v in parts.items()}),
@@ -1590,34 +1633,80 @@ def run_qwen3(label, stats):
     iterations, seq 128, batch 4, 6 steps) through ``run_path``: #1 exactly
     once a step and no other kernel, the attacker banned, no honest peer
     accused or banned, finite norms, the peak memory, the step median and
-    one more step by part. Then #1 at this path's (4, d) stack as the path
-    calls it (4 partitions of 430,143,744, tau 1, a cold start), repeated
-    bit for bit and held against its plain version one partition at a time
-    (each partition's clip and tables read only its own columns; the plain
-    version's temporaries for the whole stack would not fit beside it),
-    timed, folded into #1's row of ``stats`` (``at_qwen3``); the kernel's
-    outputs wait on the host (6.9 GB), so the plain version's temporaries
-    have room on the card. Returns the launch counts."""
-    from repro_torch.kernels import centered_clip as kc
-
+    one more step by part. Then #1 at this path's (4, d) stack
+    (``fused_at_path``), held against its plain version, folded into #1's
+    row of ``stats`` (``at_qwen3``). Returns the launch counts."""
     _, counts = run_path(label, QWEN3, breakdown=True,
                          launches={"butterfly_clip_fused": 6}, d=D_QWEN3)
+    fused_at_path(label, D_QWEN3, 24, stats, "@q3")
+    return counts
+
+
+def owner_clip_at(label, stats, d, suffix):
+    """#10 at a launch path's owner stack, the (4, d/4) receive buffer of
+    one partition (d the model's), as the launcher's owner calls it (tau
+    1, a cold start, CLIP_ITERS iterations): held against its plain
+    version and timed (``hold``), folded into #10's row under
+    ``SIDE_ROWS[suffix]``."""
+    from repro_torch.kernels import centered_clip as kc
+
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(24)
+    gen.manual_seed(27)
+    part = kc.part_len(d, 4)
+    xs = stack(4, part, gen, "cuda")
+    z = torch.randn((part,), generator=gen, device="cuda")
+    z.div_(torch.linalg.vector_norm(z))
+    taus = [1.0] * CLIP_ITERS
+    nd, it, tbl = 4 * part, CLIP_ITERS, 2 * 4 * 4
+    hold(stats, "centered_clip_fused" + suffix,
+         f"centered_clip_fused at the owner stack (4, {part}) {it} "
+         "iterations tau=1 cold",
+         lambda: kc.centered_clip_fused(xs, taus, z),
+         lambda: kc.centered_clip_fused_plain(xs, taus, z),
+         (nd + 2 * part) * 4 + tbl, nd * (6 * it + 6),
+         ((it + 2) * nd + (2 * it + 1) * part) * 4 + tbl, True, phase=label)
+    fold_side(stats, "centered_clip_fused", suffix)
+    del xs, z
+    torch.cuda.empty_cache()
+
+
+# the body #1's norm, update and dot passes take (``_Stack.body``)
+BODIES = {0: "global, column by column", 1: "global, 16-byte loads",
+          2: "staged"}
+
+
+def fused_at_path(label, d, seed, stats=None, suffix=None):
+    """#1 at a path's (4, d) stack as the path calls it (4 partitions,
+    tau 1, a cold start, CLIP_ITERS iterations): repeated bit for bit and
+    timed, with the body its passes take. With ``stats``, also held
+    against its plain version one partition at a time (each partition's
+    clip and tables read only its own columns, the last zero-padded to
+    the partition's length, as ``stacked`` pads; the plain version's
+    temporaries for the whole stack would not fit beside it) and the
+    plain version timed so, folded into #1's row of ``stats`` under
+    ``SIDE_ROWS[suffix]``; the kernel's outputs wait on the host, so the
+    plain version's temporaries have room on the card. Returns the
+    numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import centered_clip as kc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
     n = n_parts = 4
-    grads = stack(n, D_QWEN3, gen, "cuda")
-    part = kc.part_len(D_QWEN3, n_parts)
+    grads = stack(n, d, gen, "cuda")
+    part = kc.part_len(d, n_parts)
     z = torch.randn((n_parts, part), generator=gen, device="cuda")
     z.div_(torch.linalg.vector_norm(z, dim=1, keepdim=True))
-    taus, it = [1.0] * CLIP_ITERS, CLIP_ITERS
+    taus = [1.0] * CLIP_ITERS
 
     def kern():
         return kc.butterfly_clip_fused(grads, n_parts, taus, z)
 
     def plain(j):
-        cols = slice(j * part, (j + 1) * part)
-        return kc.butterfly_clip_fused_plain(grads[:, cols], 1, taus,
-                                             z[j:j + 1])
+        cols = grads[:, j * part:(j + 1) * part]
+        cols = F.pad(cols, (0, part - cols.shape[1]))
+        return kc.butterfly_clip_fused_plain(cols, 1, taus, z[j:j + 1])
 
     def plain_all():
         for j in range(n_parts):
@@ -1626,34 +1715,40 @@ def run_qwen3(label, stats):
     out = tuple(t.cpu() for t in kern())
     check(bitwise(out, tuple(t.cpu() for t in kern())),
           f"{label}: #1 at (4, d) not bitwise repeatable")
-    errs, tops, ok = [0.0] * 3, [0.0] * 3, True
-    for j in range(n_parts):
-        ref = tuple(t.cpu() for t in plain(j))
-        for o, (x, y) in enumerate(zip((t[j:j + 1] for t in out), ref)):
-            ok = ok and torch.allclose(x, y, rtol=RTOL, atol=ATOL)
-            errs[o] = max(errs[o], float((x - y).abs().max()))
-            tops[o] = max(tops[o], float(y.abs().max()))
-        del ref
-    err = max(errs)
-    rel = max(e / max(t, 1e-30) for e, t in zip(errs, tops))
-    check(ok and rel <= RTOL, f"{label}: #1 at (4, d) disagrees with plain, "
-          f"max abs err {err:.3e}, relative {rel:.3e}")
+    st = dict(body=BODIES[kc._Stack(grads, n_parts).body],
+              **fused_cold_bound(n, d, n_parts, CLIP_ITERS))
+    held = ""
+    if stats is not None:
+        errs, tops, ok = [0.0] * 3, [0.0] * 3, True
+        for j in range(n_parts):
+            ref = tuple(t.cpu() for t in plain(j))
+            for o, (x, y) in enumerate(zip((t[j:j + 1] for t in out), ref)):
+                ok = ok and torch.allclose(x, y, rtol=RTOL, atol=ATOL)
+                errs[o] = max(errs[o], float((x - y).abs().max()))
+                tops[o] = max(tops[o], float(y.abs().max()))
+            del ref
+        err = max(errs)
+        rel = max(e / max(t, 1e-30) for e, t in zip(errs, tops))
+        check(ok and rel <= RTOL, f"{label}: #1 at (4, d) disagrees with "
+              f"plain, max abs err {err:.3e}, relative {rel:.3e}")
     del out
-    st = stats.setdefault("butterfly_clip_fused@q3", {})
-    st.update(max_abs_err=err, max_rel_err=rel, ms=time_ms(kern),
-              plain_ms=time_ms(plain_all, reps=3),
-              **fused_cold_bound(n, D_QWEN3, n_parts, it))
-    print(f"{label}: butterfly_clip_fused n={n} d={D_QWEN3} P={n_parts} "
-          f"{it} iterations tau=1 cold: {st['ms']:.3f} ms (plain "
-          f"{st['plain_ms']:.3f} ms a partition at a time, bound "
-          f"{st['bound_ms']:.3f} ms by {st['bound_by']}; moves "
-          f"{st['moved_bytes']} bytes, "
-          f"{st['moved_bytes'] / st['ms'] / 1e9:.3f} TB/s), max abs err "
-          f"{err:.3e}, relative {rel:.3e}", flush=True)
-    fold_side(stats, "butterfly_clip_fused", "@q3")
+    st["ms"] = time_ms(kern, reps=3 if stats is None else 5)
+    if stats is not None:
+        st.update(max_abs_err=err, max_rel_err=rel,
+                  plain_ms=time_ms(plain_all, reps=3))
+        held = (f"; plain {st['plain_ms']:.3f} ms a partition at a time, "
+                f"max abs err {err:.3e}, relative {rel:.3e}")
+        stats["butterfly_clip_fused" + suffix] = st
+        fold_side(stats, "butterfly_clip_fused", suffix)
     del grads, z
     torch.cuda.empty_cache()
-    return counts
+    print(f"{label}: butterfly_clip_fused n={n} d={d} P={n_parts} "
+          f"{CLIP_ITERS} iterations tau=1 cold, {st['body']} body: "
+          f"{st['ms']:.3f} ms (bound {st['bound_ms']:.3f} ms by "
+          f"{st['bound_by']}; moves {st['moved_bytes']} bytes, "
+          f"{st['moved_bytes'] / st['ms'] / 1e9:.3f} TB/s){held}",
+          flush=True)
+    return st
 
 
 DEEPSEEK = ["--model", "deepseek-v2-lite-16b", "--full", "--peers", "4",
@@ -1777,21 +1872,24 @@ def rglru_kept_bytes(arch, seq):
     return kept
 
 
-def run_cut_model(label, arch, cut, d, d_full, seq, steps, card):
-    """One of (s), (t): ``arch`` at its published widths with its depth
-    cut to ``cut(cfg)`` (config fields), through ``train_byzantine``'s
-    settings (4 peers, sign flip on peer 3, 2 validators, 5 clip
-    iterations, batch 1 at ``seq``, ``steps`` steps) with the cut model
-    handed to
-    ``run_model``: #1 exactly once a step and no other kernel, the
-    attacker banned at ``LOCAL_BAN_STEP``, no honest peer accused or
-    banned, finite losses and norms, the final |g|, the step median, one
-    more step by part, the peak memory beside the card; then #1 at the
-    path's (4, d) stack, repeated bit for bit and timed. Returns the
-    launch counts."""
+def run_cut_model(label, arch, cut, d, d_full, seq, steps, card, batch=1,
+                  ban_step=LOCAL_BAN_STEP, stats=None, suffix=None):
+    """One of (s), (t), (v): ``arch`` at its published widths with its
+    depth cut to ``cut(cfg)`` (config fields), through
+    ``train_byzantine``'s settings (4 peers, sign flip on peer 3, 2
+    validators, 5 clip iterations, ``batch`` rows a peer at ``seq``,
+    ``steps`` steps) with the cut model handed to ``run_model``; a model
+    with an encoder memory gets its ``memory_raw`` from the pipeline's
+    extras, as the launcher feeds it. Checks: #1 exactly once a step and
+    no other kernel, the attacker banned at ``ban_step``, no honest peer
+    accused or banned, finite losses and norms, the final |g|; prints the
+    step median, one more step by part, the peak memory beside the card;
+    then #1 at the path's (4, d) stack (``fused_at_path``; held against
+    its plain version with ``stats``). Returns the launch counts."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
     from repro_torch.models.model import Model
     from repro_torch.models.workload import model_setup
 
@@ -1811,51 +1909,37 @@ def run_cut_model(label, arch, cut, d, d_full, seq, steps, card):
 
     def setup():
         _, params0, batch_fn, _ = model_setup(model, seq_len=seq,
-                                              batch_size=1, device="cuda")
+                                              batch_size=batch,
+                                              device="cuda")
+        if cfg.encoder_len:
+            pipe = TokenPipeline(cfg.vocab_size, seq, batch, device="cuda")
+            extras = {"memory_raw": ((cfg.encoder_len, cfg.encoder_dim),
+                                     torch.float32)}
+
+            def batch_fn(peer, step, flipped):
+                out = pipe.device_batch(step, peer, extras=extras)
+                if flipped:
+                    out["tokens"] = torch.flip(out["tokens"], dims=[1])
+                return out
         return loss_fn, params0, batch_fn, model
 
     argv = ["--model", arch, "--full", "--peers", "4", "--byzantine", "1",
             "--attack", "sign_flip", "--validators", "2", "--clip-iters",
-            str(CLIP_ITERS), "--seq", str(seq), "--batch", "1", "--steps",
-            str(steps)]
+            str(CLIP_ITERS), "--seq", str(seq), "--batch", str(batch),
+            "--steps", str(steps)]
     summary, counts = run_path(label, argv, breakdown=True,
                                launches={"butterfly_clip_fused": steps},
                                d=d, setup=setup)
-    check(summary["ban_steps"] == {3: LOCAL_BAN_STEP},
+    check(summary["ban_steps"] == {3: ban_step},
           f"{label}: ban steps {summary['ban_steps']}, expected peer 3 at "
-          f"step {LOCAL_BAN_STEP}")
+          f"step {ban_step}")
     losses = torch.stack(losses).cpu()
     check(bool(torch.isfinite(losses).all()),
           f"{label}: non-finite loss {losses.tolist()}")
     check(math.isfinite(summary["final_grad_norm"]),
           f"{label}: final |g| {summary['final_grad_norm']}")
-    # #1 at this path's (4, d) stack as the path calls it (4 partitions,
-    # tau 1, a cold start), repeated bit for bit and timed; its plain
-    # version is held against it at (q)'s stack
-    from repro_torch.kernels import centered_clip as kc
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(26)
-    grads = stack(4, d, gen, "cuda")
-    z = torch.randn((4, kc.part_len(d, 4)), generator=gen, device="cuda")
-    z.div_(torch.linalg.vector_norm(z, dim=1, keepdim=True))
-
-    def kern():
-        return kc.butterfly_clip_fused(grads, 4, [1.0] * CLIP_ITERS, z)
-
-    out = tuple(t.cpu() for t in kern())
-    check(bitwise(out, tuple(t.cpu() for t in kern())),
-          f"{label}: #1 at (4, d) not bitwise repeatable")
-    del out
-    st = dict(ms=time_ms(kern, reps=3), **fused_cold_bound(4, d, 4,
-                                                           CLIP_ITERS))
-    del grads, z
-    torch.cuda.empty_cache()
-    print(f"{label}: butterfly_clip_fused n=4 d={d} P=4 {CLIP_ITERS} "
-          f"iterations tau=1 cold: {st['ms']:.3f} ms (bound "
-          f"{st['bound_ms']:.3f} ms by {st['bound_by']}; moves "
-          f"{st['moved_bytes']} bytes, "
-          f"{st['moved_bytes'] / st['ms'] / 1e9:.3f} TB/s)", flush=True)
+    # without stats, #1's plain version is held against it at (q)'s stack
+    fused_at_path(label, d, 26, stats, suffix)
     print(f"{label}: d = {summary['d']:,}; peer 3 banned at step "
           f"{summary['ban_steps'][3]}; losses over {len(losses)} gradients "
           f"in [{float(losses.min()):.6f}, {float(losses.max()):.6f}]; final "
@@ -2242,6 +2326,25 @@ def main():
         "phase 9 (t) gemma3-27b --full", "gemma3-27b",
         lambda cfg: {"prefix": cfg.prefix[:1], "pattern": (),
                      "n_repeats": 0}, D_GEMMA3, D_GEMMA3_FULL, 2048, 3, card)
+    # the encoder-decoder family whole through the distributed launcher,
+    # and gated cross attention at published widths, depth cut, on the
+    # main path
+    print("phase 9 (u) whisper-small: the whole model (12 encoder + 12 "
+          f"decoder layers, d = {D_WHISPER:,}), memory 1500 frames x 768 "
+          "from the pipeline's extras", flush=True)
+    paths["whisper"] = run_launch_path(
+        "phase 9 (u) whisper-small: " + " ".join(WHISPER[2:]),
+        WHISPER, per_owner_step("centered_clip_fused"), d=D_WHISPER)
+    check(paths["whisper"]["centered_clip_fused"] == 16,
+          "whisper: expected one launch per rank and step (16)")
+    owner_clip_at("phase 9 (u)", stats, D_WHISPER, "@wh")
+    from repro_torch.configs.base import SA, XA
+
+    paths["llama_vision"] = run_cut_model(
+        "phase 9 (v) llama-3.2-vision-11b --full", "llama-3.2-vision-11b",
+        lambda cfg: {"pattern": (SA, XA), "n_repeats": 1}, D_VISION,
+        D_VISION_FULL, 128, 6, card, batch=4, ban_step=VISION_BAN_STEP,
+        stats=stats, suffix="@lv")
     print("phase 10: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
@@ -2276,6 +2379,9 @@ def main():
             row["launches_deepseek"] = paths["deepseek"][name]
             row["launches_recurrentgemma"] = paths["recurrentgemma"][name]
             row["launches_gemma3"] = paths["gemma3"][name]
+            row["launches_llama_vision"] = paths["llama_vision"][name]
+        if name == "centered_clip_fused":
+            row["launches_whisper"] = paths["whisper"][name]
         if name in ("verify_tables", "adaptive_clip_step"):
             # the crash drill's legs: A uninterrupted, B halted, C resumed
             row["launches_drill"] = {

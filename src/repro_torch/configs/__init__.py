@@ -3,9 +3,11 @@
 Ported so far: ALBERT-large (the shared dense stack), the dense
 decoders Qwen3-1.7B, ChatGLM3-6B and Qwen1.5-110B (RoPE, QKV bias,
 QK-norm, unshared layers), the MoE decoders DeepSeek-V2-Lite-16B (MLA,
-shared experts) and DBRX-132B, Gemma3-27B (local and global attention)
-and RecurrentGemma-9B (RG-LRU and local attention); the other families of
-the JAX package's zoo wait for ROADMAP item 13.
+shared experts) and DBRX-132B, Gemma3-27B (local and global attention),
+RecurrentGemma-9B (RG-LRU and local attention), Whisper-small (the
+encoder and cross attention) and Llama-3.2-Vision-11B (the projector and
+gated cross attention); Mamba2-2.7B (the SSM) waits for ROADMAP item 13
+step 4.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _ARCH_MODULES = {
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "qwen1.5-110b": "qwen1_5_110b",
     "qwen3-1.7b": "qwen3_1_7b",
     "chatglm3-6b": "chatglm3_6b",
@@ -26,6 +29,7 @@ _ARCH_MODULES = {
     "dbrx-132b": "dbrx_132b",
     "gemma3-27b": "gemma3_27b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-small": "whisper_small",
 }
 
 

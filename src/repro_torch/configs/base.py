@@ -36,6 +36,8 @@ SA_MOE = LayerSpec("attn_full", "moe")
 MLA_D = LayerSpec("mla", "dense")
 MLA_MOE = LayerSpec("mla", "moe")
 RG = LayerSpec("rglru", "dense")
+XA = LayerSpec("attn_cross", "dense")  # gated cross attention (VLM)
+DEC_XA = LayerSpec("attn_full", "dense", cross=True)  # self + cross + mlp
 
 
 @dataclass(frozen=True)
@@ -114,6 +116,14 @@ class ModelConfig:
     @property
     def n_layers(self) -> int:
         return len(self.layers)
+
+    @property
+    def has_encoder(self) -> bool:
+        return self.n_encoder_layers > 0
+
+    @property
+    def is_decoder_only(self) -> bool:
+        return not self.has_encoder
 
     @property
     def q_dim(self) -> int:

@@ -1,15 +1,19 @@
 """Deterministic public-seed data pipeline.
 
 Counterpart of ``repro.data.pipeline``'s ``peer_seed``, ``peer_key``,
-``TokenPipeline.device_batch`` / ``batch`` and ``classification_batch``.
+``TokenPipeline.device_batch`` / ``batch`` (with the modality extras, the
+stub frames or patches of the encoder models) and
+``classification_batch``.
 BTARD needs PUBLIC data: every peer's minibatch for step t is a pure
 function of a public seed, so a validator recomputes anyone's gradient bit
 for bit. The batches come from the port's threefry generator
 (``core.prng``) along the JAX package's key chains, so the integer tokens
 and labels equal the JAX pipeline's for the same seeds, and the gaussian
-features its float32 values.
+features and extras its float32 values.
 """
 from __future__ import annotations
+
+import zlib
 
 import torch
 
@@ -44,6 +48,13 @@ def peer_key(global_seed, step, peer, device=None):
     return prng.fold_in(prng.fold_in(key, step), peer)
 
 
+def _stable_tag(name: str) -> int:
+    """The key tag of an extras stream: a crc32 of its name, the same in
+    every process (``hash()`` is salted per interpreter; public-seed data
+    must not be)."""
+    return zlib.crc32(name.encode()) & 0x7FFFFFFF
+
+
 class TokenPipeline:
     """Synthetic LM stream: x_{t+1} = (a*x_t + c) mod V with prob (1-noise),
     else uniform. The keys and the tokens live on ``device``."""
@@ -75,14 +86,24 @@ class TokenPipeline:
             toks.append(x)
         return torch.stack(toks, dim=1)  # (B, S+1)
 
-    def device_batch(self, step, peer=0, *, batch_size=None):
-        """The batch of (step, peer): {"tokens": (B, S+1) int32}."""
+    def device_batch(self, step, peer=0, *, batch_size=None, extras=None):
+        """The batch of (step, peer): {"tokens": (B, S+1) int32}, plus one
+        entry per ``extras`` item (name -> (shape tail, torch dtype)): 0.02
+        times normals of shape (B,) + tail from the key folded with the
+        name's tag, in that dtype (the encoder models' ``memory_raw``)."""
         b = batch_size or self.B
         key = peer_key(self.global_seed, step, peer, device=self.device)
-        return {"tokens": self._gen(key, b).to(torch.int32)}
+        out = {"tokens": self._gen(key, b).to(torch.int32)}
+        for name, (tail, dt) in (extras or {}).items():
+            noise = prng.normal(prng.fold_in(key, _stable_tag(name)),
+                                (b,) + tuple(tail))
+            out[name] = (noise * 0.02).to(dt)
+        return out
 
-    def batch(self, step: int, peer: int = 0, *, batch_size=None):
+    def batch(self, step: int, peer: int = 0, *, batch_size=None,
+              extras=None):
         """Host-loop entry point: the same bits as ``device_batch`` (it IS
         ``device_batch``, with concrete step and peer), generated on the
         pipeline's device."""
-        return self.device_batch(step, peer, batch_size=batch_size)
+        return self.device_batch(step, peer, batch_size=batch_size,
+                                 extras=extras)

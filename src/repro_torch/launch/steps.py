@@ -523,8 +523,8 @@ def make_btard_scan_train_step(model, optimizer, mesh, n_scan_steps,
                                tau=1.0, clip_iters=20, attack="none",
                                delta_max=1e9, warm_start=False,
                                adaptive_tol=None, aggregator=None,
-                               pipeline=None, groups=None, audit_k=None,
-                               agg_attack=None):
+                               pipeline=None, extras=None, groups=None,
+                               audit_k=None, agg_attack=None):
     """The BTARD step over a chunk of up to ``n_scan_steps`` rounds (the JAX
     package's ``lax.scan``; here a loop), with the aggregate carried from
     round to round (the warm start of a warm-startable spec).
@@ -532,7 +532,9 @@ def make_btard_scan_train_step(model, optimizer, mesh, n_scan_steps,
     Device-data mode (``pipeline`` a ``TokenPipeline`` on the device):
       step(group, params, opt_state, steps, seeds, byz_mask, weights,
       v_prev, clock=None); each round's global batch is generated on the
-      device from the public seed chain, the same bits as the host path.
+      device from the public seed chain, the same bits as the host path,
+      with the ``extras`` streams (``TokenPipeline.device_batch``'s, e.g.
+      the encoder models' ``memory_raw``).
     Host-data mode (pipeline None):
       step(group, params, opt_state, batches, steps, seeds, byz_mask,
       weights, v_prev, clock=None); ``batches`` holds the rounds' batches
@@ -568,7 +570,8 @@ def make_btard_scan_train_step(model, optimizer, mesh, n_scan_steps,
         def scan_step(group, params, opt_state, steps, seeds, byz_mask,
                       weights, v_prev, clock=None):
             return run(group, params, opt_state,
-                       lambda i, step: pipeline.device_batch(step), steps,
+                       lambda i, step: pipeline.device_batch(
+                           step, extras=extras), steps,
                        seeds, byz_mask, weights, v_prev, clock)
     else:
         def scan_step(group, params, opt_state, batches, steps, seeds,

@@ -5,7 +5,9 @@ train step of ``launch.steps`` on ``--mesh DATAx1`` peers, with the same
 flags and the same lines (``arch=...``, ``step N loss=... checksum=...``,
 ``banned peers -> [...]``, ``done: ...``, ``SUMMARY {...}``). Data comes
 from the deterministic public-seed pipeline: one global batch per step,
-its rows split over the peers.
+its rows split over the peers; an encoder model's batch also carries
+``memory_raw``, (B, encoder_len, encoder_dim) float32 stub frames or
+patches from the pipeline's extras, split by rows with the tokens.
 
 The peers are ranks of a ``launch.collectives`` group (``--backend``):
 
@@ -301,9 +303,13 @@ def _rank_main(args, group, mesh, device, agg_spec, n_scan, *, breakdown,
     pipe = (TokenPipeline(cfg.vocab_size, args.seq, args.batch, device=device)
             if device_data else None)
     host_pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch)
+    # the encoder models' stub frames or patches ride along every batch
+    extras = ({"memory_raw": ((cfg.encoder_len, cfg.encoder_dim),
+                              torch.float32)} if cfg.encoder_len else None)
 
     def host_batch(s):
-        return {k: v.to(device) for k, v in host_pipe.batch(s).items()}
+        return {k: v.to(device)
+                for k, v in host_pipe.batch(s, extras=extras).items()}
 
     flat_cost = dict(groups=args.groups or None, audit_k=args.audit_k or None,
                      agg_attack=args.agg_attack or None)
@@ -311,7 +317,8 @@ def _rank_main(args, group, mesh, device, agg_spec, n_scan, *, breakdown,
                   attack=args.attack, aggregator=agg_spec, **flat_cost)
     if args.defense == "btard" and n_scan:
         step_fn = lsteps.make_btard_scan_train_step(
-            model, opt, mesh, n_scan, pipeline=pipe, **common)
+            model, opt, mesh, n_scan, pipeline=pipe, extras=extras,
+            **common)
     elif args.defense == "btard":
         step_fn = lsteps.make_btard_train_step(model, opt, mesh, **common)
     else:

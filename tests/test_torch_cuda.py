@@ -27,7 +27,13 @@ once a step and the CPU run's bans. One block of Gemma3-27B (local
 attention) and of RecurrentGemma-9B (local attention, RG-LRU) at the
 published widths runs forward and backward on the card bit for bit
 twice and within 1e-5 of the CPU's; the reduced Gemma3-27B and
-RecurrentGemma-9B ban on the card as on the CPU. Marked
+RecurrentGemma-9B ban on the card as on the CPU. So do, at the published
+widths, Whisper-small's decoder block (self and cross attention over a
+memory of 1500 frames) and one encoder layer (1500 frames,
+bidirectional), and Llama-3.2-Vision's gated cross-attention block (1600
+patches, ``xgate`` 0.5); the reduced Whisper-small and Llama-3.2-Vision,
+fed ``memory_raw`` from the pipeline's extras, ban on the card as on the
+CPU. Marked
 ``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
@@ -1030,6 +1036,121 @@ def test_reduced_local_and_rglru_run_scan_on_card_bans_as_on_cpu(
             n_peers=4, byzantine=(3,),
             attack=AttackConfig(kind="sign_flip", start_step=0, delay=5),
             tau=1.0, clip_iters=5, m_validators=2, device=device),
+            optimizer=sgd(0.05))
+        tr.run_scan(4)
+        return tr
+
+    before = kc.LAUNCHES["butterfly_clip_fused"]
+    card = run(cuda)
+    assert kc.LAUNCHES["butterfly_clip_fused"] - before == 4
+    cpu = run("cpu")
+    assert [r["banned_now"] for r in card.history] == \
+        [r["banned_now"] for r in cpu.history]
+    assert card.banned == cpu.banned == {3}
+    for a, b in zip(card.history, cpu.history):
+        assert a["accused_peers"] == b["accused_peers"]
+        assert math.isfinite(a["grad_norm"])
+
+
+# (arch, what, decoder sequence): Whisper-small's self + cross decoder
+# block and one encoder layer over its 1500 frames, Llama-3.2-Vision's
+# gated cross-attention block over its 1600 patches
+CROSS_BLOCKS = [("whisper-small", "decoder", 448),
+                ("whisper-small", "encoder", 0),
+                ("llama-3.2-vision-11b", "gated", 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, what, S", CROSS_BLOCKS)
+def test_published_width_cross_block_on_card_matches_cpu_and_repeats_bitwise(
+        cuda, monkeypatch, arch, what, S):
+    """A cross-attending block of Whisper-small or Llama-3.2-Vision, or one
+    of Whisper's encoder layers, at its published widths, float32 (TF32
+    off), batch 1, the memory (1, encoder_len, d_model) an input too, and
+    ``xgate`` 0.5 where the block has one: forward and backward on the
+    card equal bit for bit over two runs, and the output and every
+    gradient within 1e-5 of the CPU's, relative to its largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import DEC_XA, XA
+    from repro_torch.core import prng
+    from repro_torch.core.flatten import tree_leaves, tree_unflatten
+    from repro_torch.models import transformer as tfm
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              n_encoder_layers=1)
+    spec = DEC_XA if what == "decoder" else XA
+    key = prng.key(0, device=cuda)
+    if what == "encoder":
+        params = tfm.encoder_init(key, cfg)
+    else:
+        params = tfm.block_init(key, cfg, spec)
+    if what == "gated":
+        params["mixer"]["xgate"] = torch.tensor(0.5, device=cuda)
+    gen = torch.Generator().manual_seed(27)
+    mem = torch.randn((1, cfg.encoder_len, cfg.d_model), generator=gen)
+    x = torch.randn((1, S, cfg.d_model), generator=gen)
+    dy = torch.randn(mem.shape if what == "encoder" else x.shape,
+                     generator=gen)
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_(True)
+                  for t in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        mm = mem.to(device).requires_grad_(True)
+        inputs = [mm]
+        if what == "encoder":
+            y = tfm.encoder_apply(p, cfg, mm)
+        else:
+            xx = x.to(device).requires_grad_(True)
+            inputs.append(xx)
+            y, _ = tfm.block_apply(p, cfg, spec, xx,
+                                   torch.arange(S, device=device),
+                                   memory=mm)
+        grads = torch.autograd.grad((y * dy.to(device)).sum(),
+                                    leaves + inputs)
+        return [y.detach()] + list(grads)
+
+    one, two = run(cuda), run(cuda)
+    for a, b in zip(one, two):
+        assert a.is_cuda and torch.equal(a, b)
+    for a, c in zip(one, run("cpu")):
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-5,
+                                   atol=1e-5 * float(c.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-11b"])
+def test_reduced_cross_models_run_scan_on_card_bans_as_on_cpu(
+        cuda, monkeypatch, arch):
+    """The reduced Whisper-small (encoder, self + cross decoder blocks) and
+    Llama-3.2-Vision (projector, SA and gated XA) at seq 16, each peer's
+    ``memory_raw`` from the pipeline's extras, through ``run_scan`` for 4
+    steps, 4 peers, a sign flip on peer 3: on the card #1 launches once a
+    step, and the bans, ban steps and accusations are the CPU run's."""
+    from repro_torch.core.btard_sgd import BTARDTrainer, TrainerConfig
+    from repro_torch.core.protocol import AttackConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.workload import lm_setup
+    from repro_torch.optim import sgd
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    def run(device):
+        loss_fn, params0, _, model = lm_setup(
+            arch, seq_len=16, batch_size=2, device=device)
+        cfg = model.cfg
+        pipe = TokenPipeline(cfg.vocab_size, 16, 2, device=device)
+        extras = {"memory_raw": ((cfg.encoder_len, cfg.encoder_dim),
+                                 torch.float32)}
+        tr = BTARDTrainer(
+            loss_fn, params0,
+            lambda peer, step, flipped: pipe.device_batch(step, peer,
+                                                          extras=extras),
+            TrainerConfig(
+                n_peers=4, byzantine=(3,),
+                attack=AttackConfig(kind="sign_flip", start_step=0, delay=5),
+                tau=1.0, clip_iters=5, m_validators=2, device=device),
             optimizer=sgd(0.05))
         tr.run_scan(4)
         return tr
