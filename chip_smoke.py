@@ -150,10 +150,31 @@ Phases, each printing its own line:
      passes take the global body, which it prints) held against its plain
      version one partition at a time and timed (``at_llama_vision`` in
      #1's row);
-  10. the launches of every kernel per path (#1's on (q), (r), (s), (t)
-     and (v) beside its row: ``launches_qwen3``, ``launches_deepseek``,
-     ``launches_recurrentgemma``, ``launches_gemma3``,
-     ``launches_llama_vision``; #10's on (u): ``launches_whisper``).
+     (w) the SSM at its published widths: Mamba2-2.7B (d_model 2560, 80
+     heads of 64, state 128, chunk 256, vocab 50,280) cut to 36 of its 64
+     layers (d = 1,705,232,320), as (s) through ``run_model``, seq 1024
+     (4 chunks), batch 1, 6 steps: #1 exactly 6 and no other kernel, the
+     attacker banned at the step the reduced model bans at on the CPU, no
+     honest accusation, finite, the peak memory; then #1 at that (4, d)
+     stack held against its plain version one partition at a time and
+     timed beside its floor (``at_mamba2`` in #1's row);
+     (x) serving, ``repro_torch.launch.serve`` through its ``main``, each
+     twice: Mamba2-2.7B whole (64 layers) and Qwen3-1.7B whole, 8 prompts
+     of 512 tokens, 32 generated; Whisper-small whole (the encoder over
+     1500 frames, learned positions, the cross caches), 8 prompts of 64,
+     32 generated: the generated tokens equal over the two runs, no
+     kernel launched, finite logits; the decode logits of the first 4
+     generated positions against one prefill over the prompt and the
+     tokens before, within 1e-3 of the largest logit on the float32 twin
+     (the same weights widened) and, in bf16, within twice the distance
+     bf16 storage puts between the prefill's logits and the twin's; the
+     prefill seconds, decode ms a token beside the weight-read bound, the
+     peak memory;
+  10. the launches of every kernel per path (#1's on (q), (r), (s), (t),
+     (v) and (w) beside its row: ``launches_qwen3``,
+     ``launches_deepseek``, ``launches_recurrentgemma``,
+     ``launches_gemma3``, ``launches_llama_vision``, ``launches_mamba2``;
+     #10's on (u): ``launches_whisper``).
 
 Before the last line it prints the script's wall time, the card's name
 and power limit and a JSON object with each kernel's numbers; the last
@@ -223,6 +244,22 @@ D_VISION, D_VISION_FULL = 1_518_358_529, 9_806_614_536
 # the step at which the reduced Llama-3.2-Vision bans the attacker on the
 # CPU (the engine, 4 peers, seq 128, batch 4, memory_raw from the extras)
 VISION_BAN_STEP = 1
+# Mamba2-2.7B at its published widths cut to 36 of its 64 layers (the JAX
+# package's param_count), beside the whole model
+D_MAMBA2, D_MAMBA2_FULL, MAMBA2_REPEATS = 1_705_232_320, 2_831_296_000, 36
+# (x): launch.serve on whole models, each run twice: (arch, flags)
+SERVE = [("mamba2-2.7b", ["--batch", "8", "--prompt-len", "512",
+                          "--gen", "32"]),
+         ("qwen3-1.7b", ["--batch", "8", "--prompt-len", "512",
+                         "--gen", "32"]),
+         ("whisper-small", ["--batch", "8", "--prompt-len", "64",
+                            "--gen", "32"])]
+# the generated positions whose decode logits are held against a prefill
+SERVE_CHECKED = 4
+# decode against prefill on the float32 twin (the same weights widened),
+# relative to the largest logit: float32 rounding, amplified through the
+# random-weight layers (1.0e-4 measured on Mamba2-2.7B's 64 on an H100)
+SERVE_F32_TOL = 1e-3
 # (u): the distributed launcher on Whisper-small uncut, 4 peer ranks, 4
 # steps at its decoder context, 2 rows of (448 tokens, 1500 frames) a rank
 WHISPER = ["--arch", "whisper-small", "--mesh", "4x1", "--steps", "4",
@@ -604,7 +641,8 @@ def hold(stats, name, tag, kern, plain, nbytes, ops, moved, timed,
 # the side cases a kernel's row carries: stats key suffix -> row key
 SIDE_ROWS = {"@16": "at_16_peers", "@owner": "at_owner_stack",
              "@s42": "at_section_4_2", "@q3": "at_qwen3",
-             "@lv": "at_llama_vision", "@wh": "at_whisper"}
+             "@lv": "at_llama_vision", "@wh": "at_whisper",
+             "@m2": "at_mamba2"}
 
 
 def fold_side(stats, name, suffix):
@@ -1745,7 +1783,8 @@ def fused_at_path(label, d, seed, stats=None, suffix=None):
     print(f"{label}: butterfly_clip_fused n={n} d={d} P={n_parts} "
           f"{CLIP_ITERS} iterations tau=1 cold, {st['body']} body: "
           f"{st['ms']:.3f} ms (bound {st['bound_ms']:.3f} ms by "
-          f"{st['bound_by']}; moves {st['moved_bytes']} bytes, "
+          f"{st['bound_by']}; moves {st['moved_bytes']} bytes, floor "
+          f"{1e3 * st['moved_bytes'] / HBM_BYTES_PER_S:.3f} ms, "
           f"{st['moved_bytes'] / st['ms'] / 1e9:.3f} TB/s){held}",
           flush=True)
     return st
@@ -1874,7 +1913,7 @@ def rglru_kept_bytes(arch, seq):
 
 def run_cut_model(label, arch, cut, d, d_full, seq, steps, card, batch=1,
                   ban_step=LOCAL_BAN_STEP, stats=None, suffix=None):
-    """One of (s), (t), (v): ``arch`` at its published widths with its
+    """One of (s), (t), (v), (w): ``arch`` at its published widths with its
     depth cut to ``cut(cfg)`` (config fields), through
     ``train_byzantine``'s settings (4 peers, sign flip on peer 3, 2
     validators, 5 clip iterations, ``batch`` rows a peer at ``seq``,
@@ -1946,6 +1985,102 @@ def run_cut_model(label, arch, cut, d, d_full, seq, steps, card, batch=1,
           f"|g| {summary['final_grad_norm']!r}; peak memory "
           f"{summary['peak_memory'] / 1e9:.2f} GB on {card}", flush=True)
     return counts
+
+
+def run_serve(label, arch, flags):
+    """(x) ``repro_torch.launch.serve`` on ``arch`` whole (published widths,
+    every layer, bf16), through its ``main``, twice: the two runs'
+    generated tokens equal, no kernel launched (serving runs none), every
+    logit finite. Then, at the first ``SERVE_CHECKED`` generated
+    positions, each decode step's logits against one prefill over the
+    prompt and the tokens generated before it, relative to the largest
+    logit: on the float32 twin (the second run's weights widened, its own
+    cache decoded from its own prefill) within ``SERVE_F32_TOL``; in bf16
+    within twice the distance bf16 storage puts between that prefill's
+    logits and the float32 twin's (or ``SERVE_F32_TOL`` where larger: a
+    float32 model is its own twin) (the rounding noise of this model in
+    bf16, measured here: random weights amplify it through the layers,
+    to about half the largest logit on Mamba2-2.7B's 64). Prints both
+    runs' prefill seconds and decode ms a token beside the weight-read
+    bound (every weight's bytes once at 3.35 TB/s), the peak memory, the
+    errors and the share of equal argmaxes."""
+    import dataclasses
+
+    from repro_torch.core.flatten import tree_leaves, tree_unflatten
+    from repro_torch.kernels import centered_clip as kc
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import Model
+
+    argv = ["--arch", arch] + flags
+    times, tokens = [], None
+    for _ in range(2):
+        kc.reset_launch_counts()
+        out = serve.main(argv)
+        check(not any(kc.LAUNCHES.values()),
+              f"{label}: kernels launched while serving {dict(kc.LAUNCHES)}")
+        check(all(bool(torch.isfinite(t).all()) for t in out.logits),
+              f"{label}: non-finite logits")
+        times.append((out.prefill_s, out.decode_ms, out.peak_memory))
+        if tokens is None:
+            tokens = out.tokens
+            del out
+            torch.cuda.empty_cache()
+    check(torch.equal(tokens, out.tokens),
+          f"{label}: the two runs generated different tokens")
+    model, params, P = out.model, out.params, out.batch["tokens"].shape[1]
+    B = tokens.shape[0]
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    bound_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
+    model32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
+    params32 = tree_unflatten(params, [t.float()
+                                       for t in tree_leaves(params)])
+    prefill, prefill32 = make_prefill_step(model), make_prefill_step(model32)
+    decode32 = make_decode_step(model32)
+    cache32 = model32.init_cache(B, P + SERVE_CHECKED, "cuda")
+    prefill32(params32, out.batch, cache32)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    errs = []  # (bf16 decode, bf16 noise, float32 twin's decode), each j
+    same = []
+    for j in range(1, SERVE_CHECKED + 1):
+        batch = dict(out.batch, tokens=torch.cat(
+            [out.batch["tokens"], out.tokens[:, :j]], 1))
+        ref, _ = prefill(params, batch, model.init_cache(B, P + j, "cuda"))
+        ref32, _ = prefill32(params32, batch,
+                             model32.init_cache(B, P + j, "cuda"))
+        dec32, _ = decode32(params32, cache32, {
+            "token": out.tokens[:, j - 1],
+            "pos": torch.full((B,), P + j - 1, dtype=torch.int32,
+                              device="cuda")})
+        errs.append((rel(out.logits[j], ref), rel(ref, ref32),
+                     rel(dec32, ref32)))
+        same.append(float((out.logits[j].argmax(-1) == ref.argmax(-1))
+                          .float().mean()))
+    for e16, noise, e32 in errs:
+        check(e32 <= SERVE_F32_TOL,
+              f"{label}: float32 decode {e32:.3e} of the largest logit from "
+              f"a prefill's, above {SERVE_F32_TOL}")
+        check(e16 <= max(2 * noise, SERVE_F32_TOL),
+              f"{label}: bf16 decode {e16:.3e} of the largest logit from a "
+              f"prefill's, above twice bf16's own {noise:.3e}")
+    print(f"{label}: {model.cfg.name} whole, {model.cfg.n_layers} layers, "
+          f"{weight_bytes / 1e9:.3f} GB of weights; tokens equal over 2 "
+          f"runs; prefill {[round(t[0], 4) for t in times]} s; decode "
+          f"{[round(t[1], 3) for t in times]} ms/token beside the "
+          f"weight-read bound {bound_ms:.3f} ms; peak memory "
+          f"{[round(t[2] / 1e9, 2) for t in times]} GB; decode vs prefill "
+          f"at generated positions 1-{SERVE_CHECKED}, of the largest "
+          f"logit: bf16 {[f'{e[0]:.3e}' for e in errs]} (tolerance twice "
+          f"bf16's own distance from the float32 twin, "
+          f"{[f'{e[1]:.3e}' for e in errs]}), float32 twin "
+          f"{[f'{e[2]:.3e}' for e in errs]} (tolerance {SERVE_F32_TOL}); "
+          f"bf16 argmax equal {same}", flush=True)
+    del out, params, model, params32, cache32
+    torch.cuda.empty_cache()
 
 
 def bits(t):
@@ -2345,6 +2480,15 @@ def main():
         lambda cfg: {"pattern": (SA, XA), "n_repeats": 1}, D_VISION,
         D_VISION_FULL, 128, 6, card, batch=4, ban_step=VISION_BAN_STEP,
         stats=stats, suffix="@lv")
+    # the SSM at published widths, depth cut, on the main path
+    paths["mamba2"] = run_cut_model(
+        "phase 9 (w) mamba2-2.7b --full", "mamba2-2.7b",
+        lambda cfg: {"n_repeats": MAMBA2_REPEATS}, D_MAMBA2, D_MAMBA2_FULL,
+        1024, 6, card, stats=stats, suffix="@m2")
+    # serving: prefill and decode of whole models
+    for arch, flags in SERVE:
+        run_serve(f"phase 9 (x) serve {arch} {' '.join(flags)}", arch,
+                  flags)
     print("phase 10: kernels launched per path: " + json.dumps(paths),
           flush=True)
     home = {"butterfly_clip_fused": "main", "verify_tables_batched":
@@ -2380,6 +2524,7 @@ def main():
             row["launches_recurrentgemma"] = paths["recurrentgemma"][name]
             row["launches_gemma3"] = paths["gemma3"][name]
             row["launches_llama_vision"] = paths["llama_vision"][name]
+            row["launches_mamba2"] = paths["mamba2"][name]
         if name == "centered_clip_fused":
             row["launches_whisper"] = paths["whisper"][name]
         if name in ("verify_tables", "adaptive_clip_step"):

@@ -5,18 +5,21 @@ decoders Qwen3-1.7B, ChatGLM3-6B and Qwen1.5-110B (RoPE, QKV bias,
 QK-norm, unshared layers), the MoE decoders DeepSeek-V2-Lite-16B (MLA,
 shared experts) and DBRX-132B, Gemma3-27B (local and global attention),
 RecurrentGemma-9B (RG-LRU and local attention), Whisper-small (the
-encoder and cross attention) and Llama-3.2-Vision-11B (the projector and
-gated cross attention); Mamba2-2.7B (the SSM) waits for ROADMAP item 13
-step 4.
+encoder and cross attention), Llama-3.2-Vision-11B (the projector and
+gated cross attention) and Mamba2-2.7B (the SSM): every architecture of
+the JAX package.
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
+    InputShape,
     LayerSpec,
     ModelConfig,
     reduce_config,
+    shape_applicable,
 )
 
 _ARCH_MODULES = {
@@ -30,6 +33,7 @@ _ARCH_MODULES = {
     "gemma3-27b": "gemma3_27b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "whisper-small": "whisper_small",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 

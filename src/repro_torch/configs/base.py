@@ -1,6 +1,7 @@
-"""Model configuration: a copy of ``repro.configs.base`` (``LayerSpec``,
-``ModelConfig``, ``reduce_config``), kept here so the port imports nothing
-of the JAX package.
+"""Model and input-shape configuration: a copy of ``repro.configs.base``
+(``LayerSpec``, ``ModelConfig``, ``reduce_config``, ``InputShape``,
+``INPUT_SHAPES``, ``shape_applicable``), kept here so the port imports
+nothing of the JAX package.
 
 A model is a stack of ``LayerSpec`` blocks: prefix + repeated pattern +
 suffix, with the pattern's parameters optionally shared across repeats
@@ -35,6 +36,7 @@ LSA = LayerSpec("attn_local", "dense")
 SA_MOE = LayerSpec("attn_full", "moe")
 MLA_D = LayerSpec("mla", "dense")
 MLA_MOE = LayerSpec("mla", "moe")
+SSM = LayerSpec("ssm", "none")
 RG = LayerSpec("rglru", "dense")
 XA = LayerSpec("attn_cross", "dense")  # gated cross attention (VLM)
 DEC_XA = LayerSpec("attn_full", "dense", cross=True)  # self + cross + mlp
@@ -133,6 +135,14 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_inner // self.ssm_head_dim if self.ssm_state else 0
+
     def validate(self) -> None:
         assert self.n_layers > 0, self.name
         for spec in self.layers:
@@ -196,3 +206,29 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         max_position=4096,
         dtype="float32",
     )
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
+    """long_500k only for the sub-quadratic models."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True

@@ -33,7 +33,14 @@ def _rotl(x, r):
 
 def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 block cipher (20 rounds), elementwise over
-    broadcastable int64 tensors of uint32 words. Returns (y1, y2)."""
+    broadcastable int64 tensors of uint32 words. Returns (y1, y2). On the
+    meta device (shapes only: ``Model.param_count``) the rounds are
+    skipped, as ``normal`` skips its draw there."""
+    if x1.device.type == "meta":
+        shape = torch.broadcast_shapes(k1.shape, k2.shape, x1.shape,
+                                       x2.shape)
+        return (torch.empty(shape, dtype=torch.int64, device="meta"),
+                torch.empty(shape, dtype=torch.int64, device="meta"))
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & _M32
     x2 = (x2 + ks[1]) & _M32

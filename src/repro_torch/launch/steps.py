@@ -20,8 +20,9 @@ the same step function on its own replica, and the collectives of
 
 A step returns, on every rank, the global view that the JAX step returns
 to the host: the per-peer verification entries gathered into (n,) arrays
-(:func:`global_verif`). The serving steps are not ported (ROADMAP queue 1
-item 15).
+(:func:`global_verif`). The serving steps, :func:`make_prefill_step` and
+:func:`make_decode_step`, run on one device (the JAX package's shard the
+parameters and the cache over its mesh; a model axis is ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -602,3 +603,25 @@ def make_baseline_train_step(model, optimizer, mesh):
         return params, opt_state, {"loss": losses.mean()}
 
     return train_step
+
+
+# ===========================================================================
+# Serving steps
+# ===========================================================================
+def make_prefill_step(model):
+    """``prefill(params, batch, cache) -> (logits, cache)``: the model's
+    prefill under ``torch.inference_mode``, the cache written in place."""
+    def prefill(params, batch, cache):
+        with torch.inference_mode():
+            return model.prefill(params, batch, cache)
+    return prefill
+
+
+def make_decode_step(model):
+    """``decode(params, cache, batch) -> (logits, cache)``, the JAX
+    package's argument order: one token a row under
+    ``torch.inference_mode``, the cache updated in place."""
+    def decode(params, cache, batch):
+        with torch.inference_mode():
+            return model.decode_step(params, batch, cache)
+    return decode

@@ -7,9 +7,9 @@ the host loop (``BTARDTrainer.run``): 16 peers, the last 7 Byzantine,
 attack from step 10, ``sgd(0.3, momentum=0.9)``, 60 steps, printing the
 accuracy and the bans. ``--model`` trains a zoo LM (``albert_large``, a
 dense decoder: ``qwen3-1.7b``, ``chatglm3-6b``, ``qwen1.5-110b``, an
-MoE decoder: ``deepseek-v2-lite-16b``, ``dbrx-132b``, or local attention
-and the RG-LRU: ``gemma3-27b``, ``recurrentgemma-9b``) through the scanned
-engine (``run_scan``, 4 peers, one attacker) and
+MoE decoder: ``deepseek-v2-lite-16b``, ``dbrx-132b``, local attention
+and the RG-LRU: ``gemma3-27b``, ``recurrentgemma-9b``, or the SSM:
+``mamba2-2.7b``) through the scanned engine (``run_scan``, 4 peers, one attacker) and
 prints one line per step and a ``SUMMARY {...}`` line; ``--full`` is the
 published width, else the reduced smoke variant.
 
@@ -66,7 +66,8 @@ def build_parser():
     ap.add_argument("--model", default=None, metavar="ARCH",
                     help="train the LM (albert_large, qwen3-1.7b, "
                          "chatglm3-6b, qwen1.5-110b, deepseek-v2-lite-16b, "
-                         "dbrx-132b, gemma3-27b, recurrentgemma-9b) through "
+                         "dbrx-132b, gemma3-27b, recurrentgemma-9b, "
+                         "mamba2-2.7b) through "
                          "the scanned engine instead of the toy classifier")
     ap.add_argument("--aggregator", default=None,
                     help="AggregatorSpec string (overrides --defense), e.g. "

@@ -2,10 +2,10 @@
 QK-norm, the dense MLP, RoPE, embeddings with learned positions and the
 gemma scale, the output projection, and the depthwise causal conv.
 
-Counterpart of ``repro.models.layers`` in training mode (the conv's
-decode step, ``causal_conv1d_step``, is ROADMAP item 13's step 5).
-Parameters are nested dicts of tensors with the JAX package's names,
-shapes and dtypes (``models.convert`` maps one onto the other). Weights
+Counterpart of ``repro.models.layers``, with the conv's decode step
+(``causal_conv1d_step``) and ``jax.nn.softplus``'s form. Parameters are
+nested dicts of tensors with the JAX package's names, shapes and dtypes
+(``models.convert`` maps one onto the other). Weights
 are drawn with the port's threefry generator (``core.prng``), so a seed
 gives the JAX package's weights up to the last bit of ``normal``.
 """
@@ -179,8 +179,13 @@ def logits_out(p, cfg, x):
     return logits
 
 
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) as max(x, 0) + log1p(e^-|x|)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 # ---------------------------------------------------------------------------
-# Causal depthwise conv (the RG-LRU's front conv)
+# Causal depthwise conv (the SSM's and the RG-LRU's front conv)
 # ---------------------------------------------------------------------------
 def conv1d_init(key, channels, width, dtype):
     return {
@@ -200,3 +205,20 @@ def causal_conv1d(p, x):
     for i in range(k):  # K is 4
         out = out + xp[:, i:i + S, :] * w[i]
     return out + p["conv_b"]
+
+
+def causal_conv1d_step(p, buf, x_t):
+    """One decode step of ``causal_conv1d``. buf: (B, K-1, C) the past
+    inputs; x_t: (B, C). Returns (the new buffer, (B, C) output): the
+    window's K products summed over k, then the bias."""
+    w = p["conv_w"]
+    window = torch.cat([buf, x_t[:, None, :]], 1)  # (B, K, C)
+    out = torch.einsum("bkc,kc->bc", window, w) + p["conv_b"]
+    return (window[:, 1:] if w.shape[0] > 1 else buf), out
+
+
+def conv_tail(x, width):
+    """A prefill's conv buffer: the last ``width`` - 1 inputs of x (B, S,
+    C) along S, left-padded with zeros when S is shorter."""
+    k, S = width - 1, x.shape[1]
+    return x[:, S - k:] if S >= k else F.pad(x, (0, 0, k - S, 0))

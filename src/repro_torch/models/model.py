@@ -1,20 +1,25 @@
-"""Public model API of the port: ``init_params``, ``param_count`` and
-``loss_fn``.
+"""Public model API of the port: ``init_params``, ``param_count``,
+``loss_fn``, ``prefill``, ``decode_step`` and the cache.
 
-Counterpart of ``repro.models.model.Model`` in training mode. A batch is
-``{"tokens": (B, S+1) int}``, with ``"memory_raw": (B, M, encoder_dim)``
-for the models that attend to an encoder's memory (the stub frames or
-patches, through the projector and, for Whisper, the encoder); the loss
-is the next-token cross-entropy with
-the JAX package's ceiling-chunked evaluation (never more than
-``LOSS_CHUNK`` positions of float32 logits at once), plus the MoE
-load-balance loss where the model has experts.
+Counterpart of ``repro.models.model.Model``. Batches:
+  train:   {"tokens": (B, S+1) int, ["memory_raw": (B, M, encoder_dim)]}
+  prefill: {"tokens": (B, S) int,   ["memory_raw"]}
+  decode:  {"token": (B,) int, "pos": (B,) int} and the cache
+``memory_raw`` (the stub frames or patches of the models that attend to
+an encoder's memory) goes through the projector and, for Whisper, the
+encoder. The loss is the next-token cross-entropy with the JAX package's
+ceiling-chunked evaluation (never more than ``LOSS_CHUNK`` positions of
+float32 logits at once), plus the MoE load-balance loss where the model
+has experts. ``prefill`` and ``decode_step`` write the cache
+(``init_cache``) in place and return it beside the float32 logits of the
+last position.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core.flatten import tree_leaves
 from repro_torch.models import transformer as tfm
@@ -59,6 +64,17 @@ class Model:
         the meta device, which allocates nothing."""
         params = self.init_params(prng.key(0, device="meta"))
         return sum(t.numel() for t in tree_leaves(params))
+
+    def active_param_count(self):
+        """Parameters a token touches: the routed experts' leaves
+        (``experts_*``) count top_k / n_experts of their size."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.n_experts:
+            return total
+        params = self.init_params(prng.key(0, device="meta"))
+        expert = sum(_expert_numel(params))
+        return total - expert + expert * cfg.top_k / cfg.n_experts
 
     def _memory(self, params, batch):
         """The memory the cross-attending blocks read: ``memory_raw`` in
@@ -109,3 +125,63 @@ class Model:
             loss = loss + cfg.router_aux_coef * aux
         return loss, metrics
 
+    def prefill(self, params, batch, cache):
+        """The prompts ``batch["tokens"]`` (B, S) through the stack,
+        writing the cache's first S positions; returns the float32 logits
+        of the last position (B, V), the final norm applied to it alone,
+        and the cache."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = embed_tokens(params, cfg, tokens,
+                         pos=pos if cfg.learned_pos else None)
+        x, _ = tfm.stack_apply(params, cfg, x, pos,
+                               memory=self._memory(params, batch),
+                               cache=cache, mode="prefill")
+        x = apply_norm(params["final_norm"], cfg, x[:, -1:])
+        return logits_out(params, cfg, x)[:, 0], cache
+
+    def decode_step(self, params, batch, cache):
+        """One token a row, ``batch["token"]`` (B,) at ``batch["pos"]``
+        (B,), through the stack over the cache, which it updates; returns
+        the float32 logits (B, V) and the cache."""
+        cfg = self.cfg
+        token, pos = batch["token"], batch["pos"].to(torch.long)
+        x = embed_tokens(params, cfg, token[:, None],
+                         pos=pos[:, None] if cfg.learned_pos else None)
+        x, _ = tfm.stack_apply(params, cfg, x, pos, cache=cache,
+                               mode="decode")
+        x = apply_norm(params["final_norm"], cfg, x)
+        return logits_out(params, cfg, x)[:, 0], cache
+
+    def cache_shapes(self, batch_size, seq_len):
+        """The cache's tree with ((shape), torch dtype) leaves."""
+        return tfm.stack_cache_shapes(self.cfg, batch_size, seq_len)
+
+    def init_cache(self, batch_size, seq_len, device=None):
+        """A zero cache for ``batch_size`` rows of up to ``seq_len``
+        positions, on ``device`` (the CUDA device unless told
+        otherwise)."""
+        device = resolve_device(device)
+        return _zeros(self.cache_shapes(batch_size, seq_len), device)
+
+
+def _zeros(shapes, device):
+    if isinstance(shapes, dict):
+        return {k: _zeros(v, device) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_zeros(v, device) for v in shapes]
+    shape, dtype = shapes
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _expert_numel(tree, routed=False):
+    """The sizes of the leaves under an ``experts_*`` key."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _expert_numel(v, routed or k.startswith("experts_"))
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _expert_numel(v, routed)
+    elif routed:
+        yield tree.numel()

@@ -9,9 +9,9 @@ recurrence as a log-depth scan, with ``jax.lax.associative_scan``'s
 odd/even recursion so that its sums pair up as the JAX package's do (a
 loop over the sequence would be S dependent steps on the card, forward
 and backward). The scan is plain torch: the JAX package runs it as plain
-XLA, with no Pallas kernel. Decode, with its state and conv buffer
-(``causal_conv1d_step``, ``rglru_cache_shape``), is ROADMAP item 13's
-step 5.
+XLA, with no Pallas kernel. Prefill carries the cache's ``h`` into the
+scan and writes the last state and the conv's last inputs back; decode
+steps ``h`` and the conv buffer (``causal_conv1d_step``) in place.
 """
 from __future__ import annotations
 
@@ -20,8 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
-from repro_torch.models.layers import (causal_conv1d, cdtype, conv1d_init,
-                                      dense_init)
+from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
+                                      cdtype, conv1d_init, conv_tail,
+                                      dense_init, softplus)
 
 RGLRU_C = 8.0
 
@@ -45,30 +46,47 @@ def rglru_init(key, cfg, spec=None):
     return p
 
 
-def _softplus(x):
-    """``jax.nn.softplus``: log(1 + e^x) as max(x, 0) + log1p(e^-|x|)."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
-
-
 def _gates(p, xc):
     """xc: (..., w) conv output -> (log_a, gated input), both float32."""
     r = torch.sigmoid((xc @ p["wa"]).to(torch.float32))
     i = torch.sigmoid((xc @ p["wx"]).to(torch.float32))
-    log_a = -RGLRU_C * _softplus(p["lam"]) * r
+    log_a = -RGLRU_C * softplus(p["lam"]) * r
     a2 = torch.exp(2.0 * log_a)
     b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) \
         * (i * xc.to(torch.float32))
     return log_a, b
 
 
-def rglru_apply(p, cfg, spec, x, pos=None):
+def rglru_apply(p, cfg, spec, x, pos=None, *, cache=None, mode="train"):
     """x: (B, S, d) -> (B, S, d); ``pos`` unused (the recurrence knows
-    its positions)."""
+    its positions). With a ``cache``, "prefill" starts the scan from its
+    ``h`` and writes the last state and the conv's last K - 1 inputs
+    into it; "decode" (S = 1) steps both in place."""
     xb = x @ p["in_proj"]
     gate = F.silu((x @ p["gate_w"]).to(torch.float32))
-    log_a, b = _gates(p, causal_conv1d(p, xb))
-    _, h = linear_scan(log_a, b)
+    if mode == "decode":
+        conv_buf, xc = causal_conv1d_step(p, cache["conv"], xb[:, 0])
+        log_a, b = _gates(p, xc)
+        h = cache["h"].to(torch.float32) * torch.exp(log_a) + b  # (B, w)
+        cache["conv"].copy_(conv_buf)
+        cache["h"].copy_(h)
+        h = h[:, None]
+    else:
+        log_a, b = _gates(p, causal_conv1d(p, xb))
+        log_a_cum, h = linear_scan(log_a, b)
+        if cache is not None:
+            h = h + cache["h"].to(torch.float32)[:, None] \
+                * torch.exp(log_a_cum)
+            cache["h"].copy_(h[:, -1])
+            cache["conv"].copy_(conv_tail(xb, cfg.rglru_conv))
     return (h * gate).to(x.dtype) @ p["out_proj"]
+
+
+def rglru_cache_shape(cfg, spec, batch, seq_len, has_memory):
+    dt = cdtype(cfg)
+    w = cfg.rglru_width or cfg.d_model
+    return {"h": ((batch, w), dt),
+            "conv": ((batch, cfg.rglru_conv - 1, w), dt)}
 
 
 def linear_scan(log_a, b):

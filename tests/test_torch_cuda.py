@@ -33,7 +33,11 @@ memory of 1500 frames) and one encoder layer (1500 frames,
 bidirectional), and Llama-3.2-Vision's gated cross-attention block (1600
 patches, ``xgate`` 0.5); the reduced Whisper-small and Llama-3.2-Vision,
 fed ``memory_raw`` from the pipeline's extras, ban on the card as on the
-CPU. Marked
+CPU. Serving at the published widths: a block of Mamba2-2.7B (the SSM),
+DeepSeek-V2-Lite (MLA's absorbed decode), RecurrentGemma-9B (the RG-LRU)
+and Whisper-small (the cross caches) runs prefill and 4 decode steps on
+the card bit for bit twice and within 1e-5 of the CPU's, caches too.
+Marked
 ``cuda``; skips without a CUDA device. Run on the GPU
 machine with
 
@@ -1165,3 +1169,76 @@ def test_reduced_cross_models_run_scan_on_card_bans_as_on_cpu(
     for a, b in zip(card.history, cpu.history):
         assert a["accused_peers"] == b["accused_peers"]
         assert math.isfinite(a["grad_norm"])
+
+
+# (arch, block, prompt): the SSM block past one chunk of 256 (a ragged
+# second), DeepSeek-V2-Lite's dense MLA layer (absorbed decode over the
+# latent cache), RecurrentGemma-9B's RG-LRU block at an odd length, and
+# Whisper-small's self + cross decoder block over its 1500 frames
+SERVING_BLOCKS = [("mamba2-2.7b", "ssm", 300),
+                  ("deepseek-v2-lite-16b", "mla", 64),
+                  ("recurrentgemma-9b", "rglru", 301),
+                  ("whisper-small", "decoder", 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, block, S", SERVING_BLOCKS)
+def test_published_width_serving_block_on_card_matches_cpu_and_repeats_bitwise(
+        cuda, monkeypatch, arch, block, S):
+    """One block of Mamba2-2.7B, DeepSeek-V2-Lite, RecurrentGemma-9B or
+    Whisper-small at its published widths, float32 (TF32 off), batch 2:
+    prefill of S positions into a cache of S + 4, then 4 decode steps (the
+    cross block's without its memory, from the ``mem_k``/``mem_v`` the
+    prefill wrote): every output and every cache leaf after each call
+    equal bit for bit over two runs on the card, and within 1e-5 of the
+    CPU's, relative to its largest value; the SSM's prefill output within
+    1e-4: over a chunk of 256 its decays' float32 running sum reaches
+    about 10^3, and exp(lcum_i - lcum_j), the JAX package's form, turns
+    the sum's rounding (the card and the CPU add in other orders) into
+    relative error (2.7e-5 measured on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import DEC_XA, MLA_D, RG, SSM
+    from repro_torch.core import prng
+    from repro_torch.core.flatten import tree_leaves, tree_unflatten
+    from repro_torch.models import transformer as tfm
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    spec = {"ssm": SSM, "mla": MLA_D, "rglru": RG, "decoder": DEC_XA}[block]
+    params = tfm.block_init(prng.key(0, device=cuda), cfg, spec)
+    gen = torch.Generator().manual_seed(28)
+    xs = [torch.randn((2, S, cfg.d_model), generator=gen)] + \
+        [torch.randn((2, 1, cfg.d_model), generator=gen) for _ in range(4)]
+    mem = (torch.randn((2, cfg.encoder_len, cfg.d_model), generator=gen)
+           if block == "decoder" else None)
+
+    def run(device):
+        p = tree_unflatten(params, [t.to(device)
+                                    for t in tree_leaves(params)])
+        cache = {part: {k: torch.zeros(shape, dtype=dt, device=device)
+                        for k, (shape, dt) in leaves.items()}
+                 for part, leaves in tfm.block_cache_shapes(
+                     cfg, spec, 2, S + 4).items()}
+        outs = []
+        with torch.inference_mode():
+            y, _ = tfm.block_apply(
+                p, cfg, spec, xs[0].to(device),
+                torch.arange(S, device=device),
+                memory=None if mem is None else mem.to(device),
+                cache=cache, mode="prefill")
+            outs += [y] + [t.clone() for t in tree_leaves(cache)]
+            for i, x in enumerate(xs[1:]):
+                y, _ = tfm.block_apply(
+                    p, cfg, spec, x.to(device),
+                    torch.full((2,), S + i, device=device), cache=cache,
+                    mode="decode")
+                outs += [y] + [t.clone() for t in tree_leaves(cache)]
+        return outs
+
+    one, two = run(cuda), run(cuda)
+    for a, b in zip(one, two):
+        assert a.is_cuda and torch.equal(a, b)
+    for n, (a, c) in enumerate(zip(one, run("cpu"))):
+        tol = 1e-4 if block == "ssm" and n == 0 else 1e-5
+        torch.testing.assert_close(a.cpu(), c, rtol=tol,
+                                   atol=tol * float(c.abs().max()))

@@ -18,8 +18,8 @@ layers) against the JAX package on the same numpy inputs from a seed:
   rope) and Qwen1.5-110B (QKV bias);
 * cross attention, beside a local or global self-attention or alone,
   builds in the small Qwen3's config and applies over a memory within
-  1e-5 of the JAX package's block; the SSM blocks, which item 13 has not
-  ported, raise ``NotImplementedError`` naming the item and its step."""
+  1e-5 of the JAX package's block; so do the two SSM blocks (the mixer
+  alone, and with a dense MLP)."""
 import dataclasses
 
 import jax
@@ -289,7 +289,35 @@ def test_cross_blocks_build_and_apply_with_memory(mixer, cross):
 @pytest.mark.parametrize("spec", [LayerSpec("ssm", "none"),
                                   LayerSpec("ssm", "dense")])
 def test_blocks_not_ported_raise_naming_item_13(spec):
-    cfg = dataclasses.replace(tget_config("qwen3-1.7b"), **SMALL_QWEN3,
-                              pattern=(spec,))
-    with pytest.raises(NotImplementedError, match="item 13's step 4"):
-        ttfm.block_init(prng.key(0), cfg, spec)
+    """The two SSM blocks, which raised ``NotImplementedError`` naming item
+    13 until the SSM was ported: built in the small Qwen3's config with
+    the SSM's sizes (state 16, head dim 32, chunk 8), the JAX package's
+    init carried over with random biases and norm scales (``dt_bias`` and
+    ``gate_norm`` among them), ``A_log``, ``D`` and the conv's bias, and
+    applied over x (2, 21, d), a ragged last chunk,
+    within 1e-5 of the JAX package's block."""
+    from repro.configs.base import LayerSpec as JLayerSpec
+    from repro.models import transformer as jtfm
+
+    jspec = JLayerSpec(spec.mixer, spec.mlp)
+    ssm = dict(ssm_state=16, ssm_head_dim=32, ssm_chunk=8)
+    jcfg, tcfg = _cfgs("qwen3-1.7b", **SMALL_QWEN3, **ssm, pattern=(spec,))
+    jcfg = dataclasses.replace(jcfg, pattern=(jspec,))
+    jp = _perturbed(jtfm.block_init(jax.random.key(3), jcfg, jspec), 4)
+    rng = np.random.default_rng(6)
+    for name in ("A_log", "D", "conv_b"):
+        jp["mixer"][name] = jnp.asarray(
+            rng.normal(1.0, 0.5, jp["mixer"][name].shape), jnp.float32)
+    x = rng.normal(size=(2, 21, 128)).astype(np.float32)
+    jy, _, _ = jax.jit(lambda p, x: jtfm.block_apply(
+        p, jcfg, jspec, x, pos=jnp.arange(21), memory=None, cache=None,
+        mode="train"))(jp, jnp.asarray(x))
+    tp = from_jax_params(_np_tree(jp))
+    ty, aux = ttfm.block_apply(tp, tcfg, spec, torch.from_numpy(x),
+                               torch.arange(21))
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    own = ttfm.block_init(prng.key(3), tcfg, spec)
+    assert sorted(own) == sorted(jp) and sorted(own["mixer"]) == \
+        sorted(jp["mixer"])
